@@ -1,0 +1,59 @@
+"""bjxa_tpu_torch: the BandJAM XA codec engine in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper.
+
+A port of :mod:`bjxa_tpu` (the JAX/Pallas engine, kept as the reference).
+This package holds the whole-file XA -> WAVE decode path: header parsing
+and validation with the same typed errno-style errors, the chunk-parallel
+exact fixed-point decoder, and a ``bjxa``-compatible ``decode`` CLI.  It
+imports no JAX.
+"""
+
+__version__ = "0.5.0"
+
+from bjxa_tpu_torch.errors import (
+    BjxaError,
+    BjxaFault,
+    BjxaInvalidState,
+    BjxaBufferError,
+    BjxaProtocolError,
+    BjxaIOError,
+    BjxaBadFileError,
+)
+from bjxa_tpu_torch.format import (
+    XA_HEADER_SIZE,
+    RIFF_HEADER_SIZE,
+    BLOCK_SAMPLES,
+    XAFormat,
+    RiffFormat,
+    parse_xa_header,
+    dump_xa_header,
+    parse_riff_header,
+    dump_riff_header,
+    dump_pcm,
+    load_pcm,
+)
+from bjxa_tpu_torch.api import decode_xa, xa_to_wav
+
+__all__ = [
+    "__version__",
+    "BjxaError",
+    "BjxaFault",
+    "BjxaInvalidState",
+    "BjxaBufferError",
+    "BjxaProtocolError",
+    "BjxaIOError",
+    "BjxaBadFileError",
+    "XA_HEADER_SIZE",
+    "RIFF_HEADER_SIZE",
+    "BLOCK_SAMPLES",
+    "XAFormat",
+    "RiffFormat",
+    "parse_xa_header",
+    "dump_xa_header",
+    "parse_riff_header",
+    "dump_riff_header",
+    "dump_pcm",
+    "load_pcm",
+    "decode_xa",
+    "xa_to_wav",
+]

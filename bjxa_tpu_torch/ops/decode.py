@@ -1,0 +1,346 @@
+"""Whole-file XA decode pipelines on one device.
+
+Port of the main-path subset of :mod:`bjxa_tpu.ops.decode`.  Two pipelines
+share the lane-vectorized filter:
+
+* :func:`decode_arrays` — one file, lanes = channels.  The honest
+  sequential-over-blocks recurrence, used for short streams; on a CUDA
+  device it runs the filter kernel (:mod:`bjxa_tpu_torch.ops.cuda_filter`).
+* :func:`decode_fixpoint_lanes` — one file, lanes = chunks x channels.
+  Exact intra-file parallelism: the block range is split into K chunks
+  that all decode in parallel from guessed boundary predictor states,
+  iterated to a fixed point.  Chunk 0 is anchored at the true header
+  state and each round propagates exact end states one chunk forward, so
+  the fixed point is reached in at most K rounds and is *bit-exact*;
+  typical audio converges in 2-4 rounds.  On a CUDA device every round
+  is one launch of the decode kernel
+  (:mod:`bjxa_tpu_torch.ops.cuda_decode`).
+
+Hosts call :func:`decode_bytes`, which picks a pipeline, checks profile
+validity (EPROTO taxonomy) and trims the padded tail.  Every function that
+touches a device takes it explicitly; nothing is chosen implicitly.
+
+Reference semantic anchors: block loop ``src/libbjxa.c:602-661``; stereo
+blocks are channel-major within an effective block and PCM is interleaved
+at stride ``channels``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bjxa_tpu_torch.errors import BjxaProtocolError
+from bjxa_tpu_torch.format.xa import XAFormat
+from bjxa_tpu_torch.ops.cuda_decode import fused_decode_lanes
+from bjxa_tpu_torch.ops.filter import decode_lanes
+from bjxa_tpu_torch.ops.inflate import inflate_blocks
+from bjxa_tpu_torch.ops.tables import BLOCK_SAMPLES
+
+
+# --------------------------------------------------------------------------
+# single file, sequential over blocks (lanes = channels)
+# --------------------------------------------------------------------------
+
+
+def decode_arrays(blocks: torch.Tensor, state: torch.Tensor, *, bits: int):
+    """Decode one file's blocks; lanes are its channels.
+
+    Args:
+      blocks: ``uint8[C, B, block_size]`` raw XA blocks per channel.
+      state:  ``int32[C, 2]`` initial predictor state (header befL/befR).
+
+    Returns ``(pcm int16[B*32, C], end_state int32[C, 2], valid bool[B, C])``
+    on the tensors' device.
+    """
+    profiles, samples = inflate_blocks(blocks, bits)  # [C,B], [C,B,32]
+    profiles = profiles.transpose(0, 1)  # [B, C]
+    samples = samples.permute(1, 2, 0)  # [B, 32, C]
+    pcm, end_state, valid = decode_lanes(profiles, samples, state)
+    frames = pcm.reshape(-1, pcm.shape[-1])  # [B*32, C]
+    return frames, end_state, valid
+
+
+# --------------------------------------------------------------------------
+# single file, chunk-parallel fixed point (lanes = chunks x channels)
+# --------------------------------------------------------------------------
+
+
+def _fixpoint_states(run, anchor, K: int, C: int, max_iters: int):
+    """Iterate chunk boundary states to the exact fixed point.
+
+    ``run(states_flat int32[K*C, 2], with_output) -> (pcm|None,
+    end int32[K*C, 2])`` decodes every chunk lane from the given input
+    states.  Chunk 0 is anchored at ``anchor`` (the true entry state), so
+    after i rounds chunks 0..i hold exact states; the loop exits as soon
+    as nothing changes (integer equality: exactness is certain, not
+    probabilistic).  Each round costs one host sync (the equality test).
+
+    Returns ``(converged [K, C, 2], iterations)``; the count starts at 1
+    after the first propagation, as in the JAX package.
+    """
+
+    def propagate(states):
+        _, end = run(states.reshape(K * C, 2), False)
+        return torch.cat([anchor[None], end.reshape(K, C, 2)[:-1]], dim=0)
+
+    prev = torch.zeros((K, C, 2), dtype=torch.int32, device=anchor.device)
+    prev[0] = anchor
+    states = propagate(prev)
+    iters = 1
+    while iters < max_iters and not torch.equal(states, prev):
+        prev, states = states, propagate(states)
+        iters += 1
+    return states, iters
+
+
+def _unscramble_chunks(pcm_l, B: int, K: int, C: int):
+    """[Bc, 32, K*C] chunk-lane output -> [B*32, C] frames (trim pad)."""
+    Bc = pcm_l.shape[0]
+    return (
+        pcm_l.reshape(Bc, BLOCK_SAMPLES, K, C)
+        .permute(2, 0, 1, 3)
+        .reshape(K * Bc * BLOCK_SAMPLES, C)[: B * BLOCK_SAMPLES]
+    )
+
+
+def _end_from_frames(frames, B: int):
+    """True end state after the last real block (padded dummy blocks drag
+    lane state to zero, so recover it from the decoded samples)."""
+    last = B * BLOCK_SAMPLES
+    return torch.stack([frames[last - 1], frames[last - 2]], dim=-1).to(
+        torch.int32
+    )
+
+
+def fixpoint_lanes_core(
+    blocks_t: torch.Tensor,
+    state: torch.Tensor,
+    num_chunks: int,
+    channels: int,
+    b_total: int,
+    *,
+    bits: int,
+):
+    """Chunk-parallel fixed-point decode over lane-major raw blocks.
+
+    Args:
+      blocks_t: ``uint8[Bc, S, K*C]`` — raw blocks, lane-minor, lane
+        ``l = k*C + c`` (chunk-major, channel-minor); trailing lanes beyond
+        ``b_total`` blocks hold valid dummy pad (profile 0, zero samples).
+      state:    ``int32[C, 2]`` — true entry state of chunk 0.
+      b_total:  real (pre-chunk-padding) block count, ``<= K*Bc``.
+
+    Every round runs :func:`fused_decode_lanes` states-only; the converged
+    states run it once more with output.
+
+    Returns ``(pcm int16[b_total*32, C], end int32[C, 2],
+    valid bool[b_total, C], iterations int)``.
+    """
+    Bc, _S, KC = blocks_t.shape
+    K, C = num_chunks, channels
+    if KC != K * C:
+        raise ValueError(f"lane count {KC} != {K} chunks x {C} channels")
+    anchor = state.to(torch.int32)
+
+    def run(states_flat, with_output):
+        return fused_decode_lanes(
+            blocks_t, states_flat, bits=bits, with_output=with_output
+        )
+
+    states, iters = _fixpoint_states(run, anchor, K, C, max_iters=K)
+    pcm_l, _ = run(states.reshape(K * C, 2), True)
+    frames = _unscramble_chunks(pcm_l, b_total, K, C)
+    valid_l = (blocks_t[:, 0, :] >> 4) < 5  # [Bc, K*C]
+    valid = (
+        valid_l.reshape(Bc, K, C)
+        .permute(1, 0, 2)
+        .reshape(K * Bc, C)[:b_total]
+    )
+    return frames, _end_from_frames(frames, b_total), valid, iters
+
+
+def decode_fixpoint_lanes(
+    blocks_t: torch.Tensor,
+    state: torch.Tensor,
+    *,
+    bits: int,
+    num_chunks: int,
+    channels: int,
+    b_total: int,
+):
+    """Chunk-parallel decode of host-staged lane-major blocks.
+
+    The single-stream fast path: the host slices the XA payload straight
+    into the ``uint8[Bc, S, K*C]`` chunk-lane layout
+    (:func:`chunk_lanes_from_bytes`), so the device runs no byte
+    transposes.  Runs on the tensors' device.
+
+    Returns ``(pcm int16[b_total*32, C], end int32[C, 2],
+    valid bool[b_total, C], iterations int)``.
+    """
+    return fixpoint_lanes_core(
+        blocks_t, state, num_chunks, channels, b_total, bits=bits
+    )
+
+
+# --------------------------------------------------------------------------
+# host-facing conveniences
+# --------------------------------------------------------------------------
+
+
+def blocks_from_bytes(data: bytes | memoryview, fmt: XAFormat) -> np.ndarray:
+    """Slice an XA payload into ``uint8[C, B, block_size]`` (channel-major).
+
+    Stereo files store the left-channel block before the right-channel block
+    inside each effective block (``src/libbjxa.c:633-646``).
+    """
+    need = fmt.blocks * fmt.block_size_xa
+    raw = np.frombuffer(data, dtype=np.uint8, count=need)
+    # a copy, never a view: torch.from_numpy wants writable memory
+    return raw.reshape(fmt.blocks, fmt.channels, fmt.block_size).transpose(
+        1, 0, 2
+    ).copy()
+
+
+def pad_bucket(nblocks: int, granularity: int = 256) -> int:
+    """Round a block count up to a bucket: a 4-bit mantissa times a power
+    of two (<= 1/8 pad waste; pad blocks are profile-0 dummies), then to
+    the linear ``granularity``.
+
+    Identical to :func:`bjxa_tpu.ops.decode.pad_bucket`, so both packages
+    pick the same chunk count K and converge in the same number of rounds.
+    """
+    B = nblocks
+    e = max(0, B.bit_length() - 4)
+    Bp = (-(-B >> e)) << e
+    return -(-Bp // granularity) * granularity
+
+
+def chunk_lanes_from_bytes(
+    payload: bytes | memoryview,
+    fmt: XAFormat,
+    num_chunks: int,
+    pad_blocks: int,
+) -> np.ndarray:
+    """Slice an XA payload straight into the chunk-lane device layout.
+
+    Returns ``uint8[Bc, S, K*C]`` with lane ``l = k*C + c`` — the layout
+    :func:`decode_fixpoint_lanes` consumes with zero device transposes.
+    ``pad_blocks`` (>= ``fmt.blocks``, a multiple of ``num_chunks``) sets the
+    padded block count; dummy pad blocks are all-zero (profile 0 = valid).
+    """
+    B, C, S, K = fmt.blocks, fmt.channels, fmt.block_size, num_chunks
+    if pad_blocks < B or pad_blocks % K:
+        raise ValueError(f"pad_blocks {pad_blocks} for {B} blocks, K={K}")
+    Bc = pad_blocks // K
+    raw = np.frombuffer(
+        payload, dtype=np.uint8, count=B * fmt.block_size_xa
+    ).reshape(B, C, S)
+    padded = np.zeros((pad_blocks, C, S), np.uint8)
+    padded[:B] = raw
+    # [K, Bc, C, S] -> [Bc, S, K, C] -> [Bc, S, K*C]
+    return np.ascontiguousarray(
+        padded.reshape(K, Bc, C, S).transpose(1, 3, 0, 2)
+    ).reshape(Bc, S, K * C)
+
+
+def check_valid(valid: torch.Tensor, channels: int) -> None:
+    """Raise the EPROTO-equivalent naming the first bad block, if any.
+
+    ``valid``: ``bool[B, C]`` on any device, in stream order
+    (channel-minor).
+    """
+    v = valid.cpu().numpy()
+    if v.all():
+        return
+    flat = v.reshape(v.shape[0] * channels)
+    idx = int(np.argmin(flat))
+    raise BjxaProtocolError(
+        f"invalid block profile factor in block {idx // channels}"
+        f" channel {idx % channels}"
+    )
+
+
+#: Chunk-count heuristic: fill this many lanes when the stream is long
+#: enough that each chunk keeps MIN_CHUNK_BLOCKS blocks (state transients
+#: die within ~5 blocks, so the fixed point converges in a few rounds).
+TARGET_LANES = 8192
+MIN_CHUNK_BLOCKS = 8
+MAX_CHUNKS = 4096
+
+
+def pick_chunks(Bp: int, channels: int) -> int:
+    """Chunk count K for ``Bp`` padded blocks (see :data:`TARGET_LANES`),
+    stepped down until K divides ``Bp``.  The same choice as
+    :func:`bjxa_tpu.ops.decode.decode_bytes_validity`, so both packages
+    converge in the same number of rounds."""
+    num_chunks = min(
+        MAX_CHUNKS,
+        max(1, TARGET_LANES // channels),
+        max(1, Bp // MIN_CHUNK_BLOCKS),
+    )
+    while Bp % num_chunks:  # chunk grid must tile the padded block range
+        num_chunks -= 1
+    return num_chunks
+
+
+def decode_bytes_validity(
+    payload: bytes | memoryview,
+    fmt: XAFormat,
+    *,
+    device: torch.device | str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode one XA payload on ``device`` without raising on invalid
+    profiles.
+
+    The shared core of :func:`decode_bytes` and the CLI's valid-prefix
+    error path.  Streams of more than 64 blocks take the chunk-parallel
+    fixed point over a bucketed block count (:func:`pad_bucket`; dummy
+    profile-0 blocks pad the tail and are trimmed); shorter ones, and any
+    whose chunk count falls to 1, decode sequentially and unpadded.
+
+    Returns ``(frames int16[>=samples, C], valid bool[B, C])`` on
+    ``device`` — frames past the first invalid block are garbage (the
+    reference stops there; callers slice the valid prefix).
+    """
+    device = torch.device(device)
+    state = torch.from_numpy(fmt.initial_state_array()).to(device)
+    B = fmt.blocks
+    Bp = B if B <= 64 else pad_bucket(B)
+    num_chunks = pick_chunks(Bp, fmt.channels)
+    if num_chunks > 1:
+        blocks_t = chunk_lanes_from_bytes(payload, fmt, num_chunks, Bp)
+        frames, _end, valid, _it = decode_fixpoint_lanes(
+            torch.from_numpy(blocks_t).to(device),
+            state,
+            bits=fmt.bits,
+            num_chunks=num_chunks,
+            channels=fmt.channels,
+            b_total=Bp,
+        )
+    else:  # B <= 64, so Bp == B: nothing to pad
+        blocks = blocks_from_bytes(payload, fmt)
+        frames, _end, valid = decode_arrays(
+            torch.from_numpy(blocks).to(device), state, bits=fmt.bits
+        )
+    return frames, valid[:B]
+
+
+def decode_bytes(
+    payload: bytes | memoryview,
+    fmt: XAFormat,
+    *,
+    device: torch.device | str,
+) -> np.ndarray:
+    """Decode one XA payload on ``device`` to interleaved PCM
+    ``int16[samples, C]`` (a host numpy array).
+
+    Chooses the chunk-parallel fixed-point pipeline for long streams and
+    the plain recurrence for short ones (:func:`decode_bytes_validity`).
+    Raises BjxaProtocolError on an invalid profile factor anywhere in the
+    stream.
+    """
+    frames, valid = decode_bytes_validity(payload, fmt, device=device)
+    check_valid(valid, fmt.channels)
+    return frames[: fmt.samples].cpu().numpy()

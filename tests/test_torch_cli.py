@@ -1,0 +1,192 @@
+"""The PyTorch port's CLI against :mod:`bjxa_tpu.cli`, both on the CPU
+(``BJXA_PLATFORM=cpu``): same exit code, stdout bytes and stderr for the
+decode surface, plus the port's own guarantees (no JAX import, no silent
+CPU run without ``BJXA_PLATFORM=cpu``).
+
+Streams stay under 2048 blocks, so the JAX CLI takes its single-device
+path on the test harness's virtual CPU mesh.
+"""
+
+import io
+import os
+import pathlib
+import struct
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from bjxa_tpu import cli as jcli
+from bjxa_tpu_torch import XAFormat, dump_xa_header, parse_xa_header
+from bjxa_tpu_torch import cli as tcli
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def make_xa(bits, channels, blocks, seed, bad_block=None):
+    """A valid XA file image from a seed (see test_torch_decode)."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, size=(blocks, channels, 4 * bits + 1),
+                       dtype=np.uint8)
+    raw[:, :, 0] = (
+        rng.integers(0, 5, size=(blocks, channels)) << 4
+        | rng.integers(0, 13, size=(blocks, channels))
+    ).astype(np.uint8)
+    if bad_block is not None:
+        raw[bad_block, channels - 1, 0] = 0x6F
+    fmt = XAFormat(
+        data_len=raw.size, samples=blocks * 32 - int(rng.integers(0, 32)),
+        samples_rate=44100, bits=bits, channels=channels,
+        initial_state=((0, 0), (0, 0)),
+    )
+    hdr = bytearray(dump_xa_header(fmt))
+    struct.pack_into(
+        "<4h", hdr, 20, *rng.integers(-(2**15), 2**15, 4).tolist()
+    )
+    return bytes(hdr) + raw.tobytes()
+
+
+def run_cli(main, args, stdin=b""):
+    """Invoke ``main`` with captured binary stdio; (code, out, err)."""
+    out_buf = io.BytesIO()
+    err = io.StringIO()
+
+    class In:
+        buffer = io.BytesIO(stdin)
+
+    class Out:
+        buffer = out_buf
+
+        @staticmethod
+        def write(s):
+            out_buf.write(s.encode())
+
+    old = sys.stdin, sys.stdout, sys.stderr
+    sys.stdin, sys.stdout, sys.stderr = In(), Out(), err
+    try:
+        code = main(["bjxa"] + args)
+    finally:
+        sys.stdin, sys.stdout, sys.stderr = old
+    return code, out_buf.getvalue(), err.getvalue()
+
+
+@pytest.fixture
+def cpu_platform(monkeypatch):
+    monkeypatch.setenv("BJXA_PLATFORM", "cpu")
+    monkeypatch.delenv("BJXA_DEVICES", raising=False)
+
+
+def both(args, stdin=b""):
+    got = run_cli(tcli.main, args, stdin)
+    want = run_cli(jcli.main, args, stdin)
+    return got, want
+
+
+STREAMS = {
+    "stereo6": lambda: make_xa(6, 2, 300, seed=1),
+    "mono4_short": lambda: make_xa(4, 1, 23, seed=2),
+    "truncated": lambda: make_xa(8, 2, 150, seed=3)[:-700],
+    "truncated_bad": lambda: make_xa(8, 1, 90, seed=4, bad_block=5)[:-100],
+    "invalid_profile": lambda: make_xa(6, 2, 400, seed=5, bad_block=321),
+    "invalid_short": lambda: make_xa(4, 2, 17, seed=6, bad_block=0),
+    "short_header": lambda: make_xa(6, 1, 4, seed=7)[:20],
+    "empty": lambda: b"",
+    "bad_magic": lambda: b"KWD2" + make_xa(6, 1, 4, seed=8)[4:],
+}
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_decode_stdin_stdout_matches(cpu_platform, name):
+    data = STREAMS[name]()
+    got, want = both(["decode", "-", "-"], data)
+    assert got == want
+    if name == "stereo6":
+        assert got[0] == 0
+        assert len(got[1]) == 44 + parse_xa_header(data).data_len_pcm
+
+
+def test_decode_files_match(cpu_platform, tmp_path):
+    src = tmp_path / "in.xa"
+    src.write_bytes(make_xa(8, 1, 120, seed=9))
+    codes = []
+    for main, out in ((tcli.main, "t.wav"), (jcli.main, "j.wav")):
+        code, stdout, err = run_cli(main, ["decode", str(src),
+                                           str(tmp_path / out)])
+        codes.append((code, stdout, err))
+    assert codes[0] == codes[1] == (0, b"", "")
+    assert (tmp_path / "t.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()
+
+
+def test_decode_missing_input_matches(cpu_platform, tmp_path):
+    got, want = both(["decode", str(tmp_path / "nope.xa")])
+    assert got == want and got[0] == 1
+
+
+@pytest.mark.parametrize(
+    "args", [["decode", "a", "b", "c"], ["frobnicate"], [], ["help"]],
+    ids=["too_many", "unknown", "none", "help"],
+)
+def test_usage_paths_match(cpu_platform, args):
+    """Same exit code and error label; the usage text itself lists only
+    the actions this port has."""
+    (tc, tout, terr), (jc, jout, jerr) = both(args)
+    assert tc == jc
+    assert terr.split("\n")[0] == jerr.split("\n")[0]
+    assert tout[:6] == jout[:6]
+    usage = tout.decode() if args == ["help"] else terr
+    assert "decode [<xa file> [<wav file>]]" in usage
+    assert "encode" not in usage and "corpus" not in usage
+
+
+@pytest.mark.parametrize("flag", ["--streaming", "--devices",
+                                  "--segment-blocks"])
+def test_unported_decode_flags_fail(cpu_platform, flag):
+    code, out, err = run_cli(tcli.main, ["decode", flag, "2", "x.xa"])
+    assert code == 1 and out == b""
+    assert err.startswith(f"bjxa: {flag} is not yet ported\n")
+
+
+def test_no_cuda_refuses_to_run(monkeypatch):
+    """Without a card and without BJXA_PLATFORM=cpu the port exits 1 and
+    says why: it never decodes on the CPU on its own."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    monkeypatch.delenv("BJXA_PLATFORM", raising=False)
+    code, out, err = run_cli(tcli.main, ["decode", "-", "-"],
+                             make_xa(6, 1, 4, seed=1))
+    assert code == 1 and out == b""
+    assert err == ("bjxa: CUDA is not available; set BJXA_PLATFORM=cpu to"
+                   " decode on the CPU\n")
+    monkeypatch.setenv("BJXA_PLATFORM", "tpu")  # anything but cpu: the card
+    code, _out, err = run_cli(tcli.main, ["decode", "-", "-"])
+    assert code == 1 and err.startswith("bjxa: CUDA is not available")
+
+
+def test_module_entry_point_loads_no_jax(tmp_path):
+    """``python -m bjxa_tpu_torch decode`` runs without JAX in the
+    process, and ``import bjxa_tpu_torch`` pulls in no JAX module."""
+    src = tmp_path / "in.xa"
+    src.write_bytes(make_xa(6, 2, 70, seed=10))
+    env = dict(os.environ, BJXA_PLATFORM="cpu", PYTHONPATH=str(REPO))
+    probe = (
+        "import sys, runpy\n"
+        "import bjxa_tpu_torch\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'jax']\n"
+        "sys.argv = ['bjxa_tpu_torch', 'decode', sys.argv[1], sys.argv[2]]\n"
+        "try:\n"
+        "    runpy.run_module('bjxa_tpu_torch', run_name='__main__')\n"
+        "finally:\n"
+        "    assert not [m for m in sys.modules"
+        " if m.split('.')[0] == 'jax'], 'jax imported'\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", probe, str(src), str(tmp_path / "o.wav")],
+        env=env, capture_output=True, text=True, timeout=300, cwd=tmp_path,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stderr == ""
+    from bjxa_tpu import xa_to_wav
+
+    assert (tmp_path / "o.wav").read_bytes() == xa_to_wav(src.read_bytes())
