@@ -2,10 +2,11 @@
 hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of :mod:`bjxa_tpu` (the JAX/Pallas engine, kept as the reference).
-This package holds the whole-file XA -> WAVE decode path: header parsing
-and validation with the same typed errno-style errors, the chunk-parallel
-exact fixed-point decoder, and a ``bjxa``-compatible ``decode`` CLI.  It
-imports no JAX.
+This package holds the whole-file XA -> WAVE decode path and the
+WAVE -> XA profile-search encode path: header parsing and validation with
+the same typed errno-style errors, the chunk-parallel exact fixed-point
+decoder and search encoder, and a ``bjxa``-compatible ``decode``/``encode``
+CLI.  It imports no JAX.
 """
 
 __version__ = "0.5.0"
@@ -32,7 +33,7 @@ from bjxa_tpu_torch.format import (
     dump_pcm,
     load_pcm,
 )
-from bjxa_tpu_torch.api import decode_xa, xa_to_wav
+from bjxa_tpu_torch.api import decode_xa, xa_to_wav, encode_pcm, wav_to_xa
 
 __all__ = [
     "__version__",
@@ -56,4 +57,6 @@ __all__ = [
     "load_pcm",
     "decode_xa",
     "xa_to_wav",
+    "encode_pcm",
+    "wav_to_xa",
 ]

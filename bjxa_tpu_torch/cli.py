@@ -1,12 +1,15 @@
 """The ``bjxa`` command-line tool, PyTorch/CUDA edition.
 
 Same surface as the reference CLI (``src/bjxa.c:36-52``) for the actions
-ported so far: ``help`` and ``decode [<xa> [<wav>]]``, with ``-`` or
-omitted filenames meaning stdin/stdout.  Exit codes, output bytes and
-error labels are those of :mod:`bjxa_tpu.cli` (the reference's perror
-style, ``<failing stage>: <strerror>``), so scripted callers keep working.
+ported so far: ``help``, ``decode [<xa> [<wav>]]`` and ``encode [--bits
+<4|6|8>] [--truncate] [<wav> [<xa>]]``, with ``-`` or omitted filenames
+meaning stdin/stdout.  Exit codes, output bytes and error labels are those
+of :mod:`bjxa_tpu.cli` (the reference's perror style, ``<failing stage>:
+<strerror>``), so scripted callers keep working.  As there, ``encode``
+runs the filter-profile search by default and ``--truncate`` reproduces
+the reference's truncation-only encoder byte-for-byte.
 
-The device is resolved once per decode: ``BJXA_PLATFORM=cpu`` selects the
+The device is resolved once per action: ``BJXA_PLATFORM=cpu`` selects the
 CPU, anything else the CUDA card.  Without a card the tool exits 1 and
 says so; it never carries on on the CPU on its own.
 """
@@ -20,9 +23,15 @@ import numpy as np
 
 from bjxa_tpu_torch.errors import BjxaError, BjxaProtocolError
 from bjxa_tpu_torch.format import (
+    BLOCK_SAMPLES,
+    RIFF_HEADER_SIZE,
     XA_HEADER_SIZE,
+    XAFormat,
     dump_pcm,
     dump_riff_header,
+    dump_xa_header,
+    load_pcm,
+    parse_riff_header,
     parse_xa_header,
 )
 
@@ -37,10 +46,20 @@ Available actions:
     Read an XA file and convert it into a WAV file.
     Decodes on the CUDA device; BJXA_PLATFORM=cpu
     decodes on the CPU instead.
+
+  encode [--bits <4|6|8>] [--truncate] [<wav file> [<xa file>]]
+    Read a WAV file and convert it into an XA file.
+    The default number of bits per sample, when left
+    unspecified is 6. --truncate disables the filter
+    profile search (reference-compatible output).
+    Encodes on the CUDA device; BJXA_PLATFORM=cpu
+    encodes on the CPU instead.
 """
 
 #: Decode options of :mod:`bjxa_tpu.cli` that this tool does not have yet.
 NOT_PORTED = ("--streaming", "--devices", "--segment-blocks")
+#: Encode options of :mod:`bjxa_tpu.cli` that this tool does not have yet.
+ENCODE_NOT_PORTED = ("--devices", "--segment-blocks")
 
 
 def _usage(prog: str, file) -> None:
@@ -71,32 +90,9 @@ def _open_output(path: str | None):
     return open(path, "wb"), True
 
 
-def _select_device():
-    """The decode device: the CPU when ``BJXA_PLATFORM=cpu``, otherwise
-    the CUDA card.  Returns ``(device, None)``, or ``(None, message)``
-    when there is no card."""
-    import torch
-
-    if os.environ.get("BJXA_PLATFORM") == "cpu":
-        return torch.device("cpu"), None
-    if not torch.cuda.is_available():
-        return None, (
-            "CUDA is not available; set BJXA_PLATFORM=cpu to decode on"
-            " the CPU"
-        )
-    return torch.device("cuda"), None
-
-
-def _cmd_decode(args: list[str], prog: str) -> int:
-    if args and args[0] in NOT_PORTED:
-        return _fail(prog, f"{args[0]} is not yet ported")
-    if len(args) > 2:
-        return _fail(prog, "Too many arguments")
-    device, why = _select_device()
-    if device is None:
-        sys.stderr.write(f"bjxa: {why}\n")
-        return 1
-
+def _run_on_files(args: list[str], run) -> int:
+    """Open the input and output named by ``args`` (``-`` or omitted:
+    stdin/stdout), return ``run(fin, fout)`` and close what was opened."""
     try:
         fin, close_in = _open_input(args[0] if len(args) > 0 else None)
     except OSError as e:
@@ -109,12 +105,42 @@ def _cmd_decode(args: list[str], prog: str) -> int:
         return 1
 
     try:
-        return _decode_stream(fin, fout, device)
+        return run(fin, fout)
     finally:
         if close_in:
             fin.close()
         if close_out:
             fout.close()
+
+
+def _select_device(action: str):
+    """The device of ``action``: the CPU when ``BJXA_PLATFORM=cpu``,
+    otherwise the CUDA card.  Returns ``(device, None)``, or
+    ``(None, message)`` when there is no card."""
+    import torch
+
+    if os.environ.get("BJXA_PLATFORM") == "cpu":
+        return torch.device("cpu"), None
+    if not torch.cuda.is_available():
+        return None, (
+            f"CUDA is not available; set BJXA_PLATFORM=cpu to {action} on"
+            " the CPU"
+        )
+    return torch.device("cuda"), None
+
+
+def _cmd_decode(args: list[str], prog: str) -> int:
+    if args and args[0] in NOT_PORTED:
+        return _fail(prog, f"{args[0]} is not yet ported")
+    if len(args) > 2:
+        return _fail(prog, "Too many arguments")
+    device, why = _select_device("decode")
+    if device is None:
+        sys.stderr.write(f"bjxa: {why}\n")
+        return 1
+    return _run_on_files(
+        args, lambda fin, fout: _decode_stream(fin, fout, device)
+    )
 
 
 def _decode_stream(fin, fout, device) -> int:
@@ -204,6 +230,106 @@ def _decode_valid_prefix(payload, fmt, device):
     return frames[: min(len(frames), limit)]
 
 
+def _cmd_encode(args: list[str], prog: str) -> int:
+    bits = 6
+    search = True
+    while args and args[0].startswith("--"):
+        if args[0] == "--bits":
+            args = args[1:]
+            if not args:
+                return _fail(prog, "Missing number of bits per sample")
+            try:
+                bits = int(args[0])
+            except ValueError:
+                bits = -1
+            if bits not in (4, 6, 8):
+                return _fail(prog, "Invalid number of bits per sample")
+            args = args[1:]
+        elif args[0] == "--truncate":
+            search = False
+            args = args[1:]
+        elif args[0] in ENCODE_NOT_PORTED:
+            return _fail(prog, f"{args[0]} is not yet ported")
+        else:
+            break
+    if len(args) > 2:
+        return _fail(prog, "Too many arguments")
+    device, why = _select_device("encode")
+    if device is None:
+        sys.stderr.write(f"bjxa: {why}\n")
+        return 1
+    return _run_on_files(
+        args, lambda fin, fout: _encode_stream(fin, fout, bits, search, device)
+    )
+
+
+def _encode_stream(fin, fout, bits: int, search: bool, device) -> int:
+    header = fin.read(RIFF_HEADER_SIZE)
+    if header is None or len(header) < RIFF_HEADER_SIZE:
+        sys.stderr.write("bjxa_fread_riff_header: Input/output error\n")
+        return 1
+    try:
+        rf = parse_riff_header(header)
+    except BjxaError as e:
+        _perror("bjxa_fread_riff_header", e)
+        return 1
+
+    body = fin.read(rf.data_len_pcm)
+    if body is None or len(body) < rf.data_len_pcm:
+        return _encode_truncated(fout, body or b"", rf, bits, search, device)
+
+    from bjxa_tpu_torch.api import encode_pcm
+
+    try:
+        xa = encode_pcm(
+            load_pcm(body, rf.channels), rf.samples_rate, bits,
+            search=search, device=device,
+        )
+    except BjxaError as e:
+        _perror("bjxa_encode", e)
+        return 1
+    fout.write(xa)
+    return 0
+
+
+def _encode_truncated(fout, body, rf, bits: int, search: bool, device) -> int:
+    """Short PCM body: write the XA header of the promised stream and the
+    encode of the whole blocks that did arrive, then fail like the
+    reference's streaming loop (``src/bjxa_encode.c:108-160`` writes the
+    header before reading blocks, so truncated input still produces a
+    prefix).
+
+    The whole blocks encode from the zero entry state, exactly what the
+    streaming encoder of :mod:`bjxa_tpu.codec` emits for them; with no
+    whole block, nothing follows the header.
+    """
+    import torch
+
+    from bjxa_tpu_torch.ops.encode import encode_stream_blocks
+
+    channels = rf.channels
+    fmt = XAFormat(
+        data_len=-(-rf.samples // BLOCK_SAMPLES) * (bits * 4 + 1) * channels,
+        samples=rf.samples,
+        samples_rate=rf.samples_rate,
+        bits=bits,
+        channels=channels,
+        initial_state=((0, 0), (0, 0)),
+    ).validate()
+    fout.write(dump_xa_header(fmt))
+    nblocks = len(body) // (2 * channels) // BLOCK_SAMPLES
+    if nblocks:
+        frames = load_pcm(body[: nblocks * BLOCK_SAMPLES * 2 * channels],
+                          channels)
+        lanes = torch.from_numpy(
+            frames.reshape(nblocks, BLOCK_SAMPLES, channels)
+        ).to(device)
+        blocks = encode_stream_blocks(lanes, bits=bits, search=search)
+        fout.write(blocks.cpu().numpy().tobytes())
+    sys.stderr.write("fread: End of file\n")
+    return 1
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv if argv is None else argv)
     prog = argv[0] if argv else "bjxa"
@@ -217,6 +343,8 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if action == "decode":
         return _cmd_decode(rest, prog)
+    if action == "encode":
+        return _cmd_encode(rest, prog)
     return _fail(prog, "Unknown action")
 
 

@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels of ``bjxa_tpu_torch/csrc``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, at first use, and loaded
-with :mod:`ctypes`.  The library lands in ``bjxa_tpu_torch/_build/`` (listed
-in ``.gitignore``) under a name keyed by a hash of the sources and flags, so
-an edited kernel is rebuilt and an unchanged one is reused by every later
-process.  The compiler's report (``-Xptxas -v``: registers, spills) is kept
-beside it as ``<name>.log``.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them started together, and the objects are linked into
+ONE shared library with a plain C interface, at first use, and loaded with
+:mod:`ctypes`.  The library lands in ``bjxa_tpu_torch/_build/`` (listed in
+``.gitignore``) under a name keyed by a hash of the sources and flags, so an
+edited kernel is rebuilt and an unchanged one is reused by every later
+process.  The compilers' reports (``-Xptxas -v``: registers, spills) are
+kept beside it as ``<name>.log``.
 
 A failed build raises :class:`KernelBuildError`; nothing falls back.
 """
@@ -26,8 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -39,6 +39,8 @@ SIGNATURES = {
     # samples, k0, k1, shift, state, pcm, end, B, L, with_output, device,
     # stream
     "bjxa_filter_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # pcm, state, profiles, coded, recon, end, B, L, bits, device, stream
+    "bjxa_encode_search": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -77,17 +79,38 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = so.with_name(f"{so.name}.tmp{os.getpid()}")
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr
-    )
-    if res.returncode != 0:
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in cu]
+    cmds = [
+        [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(o), str(s)]
+        for s, o in zip(cu, objs)
+    ]
+    # one nvcc per source, all started together
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    results = [(c, p.returncode, out, err)
+               for c, p, (out, err) in zip(cmds, procs, outs)]
+    if all(rc == 0 for _, rc, _, _ in results):
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, res.returncode, res.stdout, res.stderr))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(
+        " ".join(c) + "\n" + out + err for c, _, out, err in results
+    ))
+    failed = [(c, rc, err) for c, rc, _, err in results if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
+        c, rc, err = failed[0]
         raise KernelBuildError(
-            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}"
+            f"{os.path.basename(c[-1])}: nvcc failed ({rc}):\n{err[-4000:]}"
         )
     os.replace(tmp, so)  # atomic: concurrent builders never see a torn .so
     return so

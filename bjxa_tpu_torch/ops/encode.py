@@ -1,0 +1,214 @@
+"""XA encode pipelines on one device.
+
+Port of the whole-file subset of :mod:`bjxa_tpu.ops.encode`.  Two encoders:
+
+* :func:`encode_truncate` — byte-compatible with the reference encoder,
+  which performs *no* prediction: profile byte 0, keep the top ``bits`` of
+  every sample (``src/libbjxa.c:665-691``).
+* :func:`encode_search` — a greedy per-block exhaustive sweep of all 80
+  filter profiles (5 factors x 16 ranges), each candidate running the
+  *real* decoder recurrence so carried state is exact; the
+  minimum-reconstruction-error candidate wins.  On a CUDA device it runs
+  the search kernel (:mod:`bjxa_tpu_torch.ops.cuda_encode`), on the CPU its
+  plain version.
+
+Blocks stay sequential (state feedback), so one stream alone would give
+the search only ``channels`` lanes.  :func:`encode_search_fixpoint` lifts
+that to ``K * channels`` lanes with the decoder's boundary-state fixed
+point, bit-identical to the sequential search; :func:`pick_encode_chunks`
+chooses K.  :func:`encode_stream_blocks` is what the entry points call.
+Every function works on the device of the tensors it is given.
+"""
+
+from __future__ import annotations
+
+import os
+from functools import partial
+
+import numpy as np
+import torch
+
+from bjxa_tpu_torch.errors import BjxaInvalidState
+from bjxa_tpu_torch.ops.deflate import deflate_blocks
+from bjxa_tpu_torch.ops.tables import NUM_FACTORS, NUM_RANGES
+
+NUM_CANDIDATES = NUM_FACTORS * NUM_RANGES  # 80
+
+
+def _candidate_tables():
+    """Static per-candidate tables: factor and range, in candidate order
+    ``factor*16 + range``."""
+    factor = np.repeat(np.arange(NUM_FACTORS), NUM_RANGES)
+    rng = np.tile(np.arange(NUM_RANGES), NUM_FACTORS)
+    return factor, rng
+
+
+def encode_truncate(pcm: torch.Tensor):
+    """Reference-compatible encode: profile 0, samples passed through.
+
+    ``pcm``: int-like ``[B, 32, L]`` (zero-padded final block).
+    Returns ``(profiles int32[B, L], coded int32[B, 32, L])`` where
+    ``coded`` feeds :func:`bjxa_tpu_torch.ops.deflate.pack_payload` (which
+    keeps the top bits, exactly like the reference's deflate callbacks).
+    """
+    B, _, L = pcm.shape
+    profiles = torch.zeros((B, L), dtype=torch.int32, device=pcm.device)
+    return profiles, pcm.to(torch.int32)
+
+
+def encode_search(pcm: torch.Tensor, state: torch.Tensor, *, bits: int):
+    """Greedy exhaustive profile-search encode (dispatcher).
+
+    Args:
+      pcm:   int-like ``[B, 32, L]`` target samples (zero-padded final
+        block), on the CPU or a CUDA device.
+      state: ``int32[L, 2]`` entry predictor state (zeros for a fresh
+        stream, since the emitted header carries zero seeds).
+
+    Returns ``(profiles int32[B, L], coded int16[B, 32, L],
+    recon int16[B, 32, L], end_state int32[L, 2])`` on ``pcm``'s device
+    (:func:`bjxa_tpu_torch.ops.cuda_encode.encode_search_lanes` routes).
+    """
+    from bjxa_tpu_torch.ops.cuda_encode import encode_search_lanes
+
+    return encode_search_lanes(
+        pcm.to(torch.int16).contiguous(),
+        state.to(torch.int32).contiguous(),
+        bits=bits,
+    )
+
+
+def encode_search_fixpoint(
+    pcm: torch.Tensor,
+    state: torch.Tensor,
+    *,
+    bits: int,
+    num_chunks: int,
+    run=None,
+):
+    """Chunk-parallel exact profile-search encode of ONE stream.
+
+    The greedy search's only cross-block coupling is the 2-tap carried
+    state, exactly like the decoder, so the decoder's boundary-state fixed
+    point applies: split the block range into ``num_chunks`` chunks laid
+    out as independent lanes, encode all chunks in parallel from guessed
+    entry states, propagate each chunk's exact end state one chunk
+    forward, and iterate until nothing changes.  Chunk 0 is anchored at the
+    true entry state, so after r rounds chunks 0..r-1 are exactly right;
+    the fixed point IS the sequential encode (bitwise), reached in at most
+    ``num_chunks`` rounds.  Each round is one search over ``K * C`` lanes
+    and one host sync (the integer equality test of the end states).
+
+    Args:
+      pcm:   int-like ``[B, 32, C]`` (zero-padded final block).
+      state: ``int32[C, 2]`` entry state, on ``pcm``'s device.
+      run:   ``run(lanes int16[Bc, 32, K*C], states int32[K*C, 2]) ->
+        (profiles, coded, recon, end)``, the per-round search;
+        :func:`encode_search` by default.
+
+    Returns ``(profiles int32[B, C], coded int16[B, 32, C],
+    recon int16[B, 32, C], end_state int32[C, 2], rounds int)`` on
+    ``pcm``'s device.
+    """
+    run = run or partial(encode_search, bits=bits)
+    B, ns, C = pcm.shape
+    K = num_chunks
+    Bc = -(-B // K)
+    pad = K * Bc - B
+    dev = pcm.device
+    arr = pcm.to(torch.int16)
+    if pad:
+        arr = torch.cat(
+            [arr, torch.zeros((pad, ns, C), dtype=torch.int16, device=dev)]
+        )
+    # lanes l = k*C + c (chunk-major, channel-minor), like the decoder
+    lanes = (
+        arr.reshape(K, Bc, ns, C).permute(1, 2, 0, 3).contiguous()
+        .reshape(Bc, ns, K * C)
+    )
+
+    states = torch.zeros((K, C, 2), dtype=torch.int32, device=dev)
+    states[0] = state.to(torch.int32)
+    rounds = 0
+    while rounds < K:
+        prof, coded, recon, end = run(lanes, states.reshape(K * C, 2))
+        new_states = torch.cat([states[:1], end.reshape(K, C, 2)[:-1]])
+        rounds += 1
+        if torch.equal(new_states, states):
+            break
+        states = new_states
+
+    # unscramble chunk lanes back to stream order and trim the pad
+    prof_s = prof.reshape(Bc, K, C).permute(1, 0, 2).reshape(K * Bc, C)[:B]
+    coded_s, recon_s = (
+        t.reshape(Bc, ns, K, C).permute(2, 0, 1, 3).reshape(K * Bc, ns, C)[:B]
+        for t in (coded, recon)
+    )
+    # true end state: after the last REAL block (pad blocks, if any, all
+    # live in the final chunk and are trimmed; their lanes' end states
+    # are garbage, so recover from the reconstruction)
+    end_s = torch.stack(
+        [recon_s[B - 1, -1, :], recon_s[B - 1, -2, :]], dim=-1
+    ).to(torch.int32)
+    return prof_s, coded_s, recon_s, end_s, rounds
+
+
+def pick_encode_chunks(nblocks: int, channels: int) -> int:
+    """Chunk count K for :func:`encode_search_fixpoint`.
+
+    The default is ``auto`` on every device: ``min(8192 // channels,
+    nblocks // 16)`` chunks, so a long stream fills 8192 lanes and each
+    chunk keeps at least 16 blocks (the fixed point converges in a few
+    rounds).  A round costs one search over the chunk lanes plus one small
+    host sync; on the CPU and on the card alike that is far cheaper than
+    the ``nblocks``-long serial search over ``channels`` lanes (PERF.md).
+    Streams of fewer than 64 blocks search sequentially.
+
+    ``BJXA_ENCODE_FIXPOINT_CHUNKS`` overrides: ``0``/``off`` forces
+    sequential, ``auto`` the default, an integer forces K (clamped to
+    ``nblocks // 16``); anything else raises :class:`BjxaInvalidState`.
+    """
+    env = os.environ.get("BJXA_ENCODE_FIXPOINT_CHUNKS", "")
+    if env in ("0", "off"):
+        return 1
+    if nblocks < 64:
+        return 1
+    if env in ("", "auto"):
+        return max(min(8192 // channels, nblocks // 16), 1)
+    try:
+        k = int(env)
+    except ValueError:
+        raise BjxaInvalidState(
+            f"Invalid BJXA_ENCODE_FIXPOINT_CHUNKS {env!r}"
+        )
+    return max(min(k, nblocks // 16), 1)
+
+
+def encode_stream_blocks(
+    pcm: torch.Tensor, *, bits: int, search: bool, run=None
+) -> torch.Tensor:
+    """Encode one stream from the zero entry state to raw XA blocks.
+
+    ``pcm``: int-like ``[B, 32, C]`` (zero-padded final block) on the
+    device that does the work.  ``search`` picks the profile search
+    (through the fixed point when :func:`pick_encode_chunks` gives K > 1)
+    or truncation; ``run`` replaces the per-round search as in
+    :func:`encode_search_fixpoint`.
+
+    Returns ``uint8[B, C, block_size]`` on ``pcm``'s device: channel-major
+    inside each effective block, the file layout.
+    """
+    B, _, C = pcm.shape
+    state = torch.zeros((C, 2), dtype=torch.int32, device=pcm.device)
+    run = run or partial(encode_search, bits=bits)
+    K = pick_encode_chunks(B, C) if search else 1
+    if not search:
+        profiles, coded = encode_truncate(pcm)
+    elif K > 1:
+        profiles, coded, _recon, _end, _rounds = encode_search_fixpoint(
+            pcm, state, bits=bits, num_chunks=K, run=run
+        )
+    else:
+        profiles, coded, _recon, _end = run(pcm, state)
+    # [B, 32, C] -> [B, C, 32] so packed bytes land channel-major
+    return deflate_blocks(profiles, coded.transpose(1, 2), bits)

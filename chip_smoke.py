@@ -7,16 +7,24 @@ card: the quickest proof that the port still builds, is right and starts.
 Phases, one line each (any failure raises and exits nonzero):
 
 0. environment: the card, its power limit, torch and CUDA versions;
-1. build the CUDA kernels from ``bjxa_tpu_torch/csrc`` (nvcc, sm_90a);
-2. each kernel, both instantiations, against its plain PyTorch version on
-   the card at the main path's shapes and at ragged ones: exact equality;
+1. build the CUDA kernels from ``bjxa_tpu_torch/csrc`` (nvcc, sm_90a, one
+   compiler per source, all started together), with each kernel's
+   registers and spills;
+2. each kernel, every instantiation, against its plain PyTorch version on
+   the card at the main paths' shapes and at ragged ones: exact equality;
 3. known answers: the saturation vector's WAV SHA-1 (and the reference's
-   golden fixtures when ``BJXA_REFERENCE_DIR`` points at them);
-4. the main path through the CLI (``python -m bjxa_tpu_torch decode``) on
-   seeded synthetic streams, a 5-minute stereo 6-bit file at full size
-   among them, byte-compared with the port's plain path on the CPU; the
-   launch counters show the in-process decode went through both kernels;
-5. timings on the card (CUDA events, median of repeats after warm-up).
+   golden fixtures when ``BJXA_REFERENCE_DIR`` points at them), the
+   encoder's ranking-contract vectors, and an encode -> decode round trip
+   that gives back the search's own reconstruction;
+4. both main paths through the CLI (``python -m bjxa_tpu_torch decode`` and
+   ``encode``) on seeded synthetic streams, a 5-minute stereo file at full
+   size among them, byte-compared with the port's plain path on the CPU;
+   the launch counters show the in-process decode and encode went through
+   every kernel, and the encode's fixed point took as many rounds on the
+   card as on the CPU;
+5. timings on the card (CUDA events, median of repeats after warm-up), the
+   per-stage split of each main path, and the encoder's sequential search
+   against its fixed point.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -69,6 +77,27 @@ GOLDEN = {
     "square-stereo-4.xa": "35d8815e712737824c61a02f603145594c0827b7",
     "square-mono-4.xa": "064c48434d77d41c7df3030f3e4a85972dcbac80",
 }
+
+# Encode kernel checks, (B, L): the main path's round shape first (the
+# 5-minute stereo WAV: 413,438 blocks over K = 4096 chunks x 2 channels,
+# Bc = 101 blocks), then ragged ones.
+ENCODE_SHAPES = ((101, 8192), (3, 37), (64, 1), (1, 2))
+
+# WAVs through the CLI encoder: name -> (bits, channels, frames, flags).  The
+# first is the full-size main-path stream: 13,230,000 frames, 413,438 blocks,
+# 52.9 MB of PCM (whole-file fixed point, K = 4096, 8192 lanes).
+ENCODE_STREAMS = {
+    "stereo6_5min": (6, 2, 44100 * 300, []),
+    "mono4_60s": (4, 1, 44100 * 60, ["--bits", "4"]),
+    "mono8_60s": (8, 1, 44100 * 60, ["--bits", "8"]),
+    "stereo8_23blocks": (8, 2, 23 * 32 - 7, ["--bits", "8"]),  # sequential
+    "stereo6_20s_truncate": (6, 2, 44100 * 20, ["--truncate"]),
+}
+# The mid-size stream: sequential search against the fixed point on the card.
+MID_STREAM = (6, 2, 44100 * 60)
+# A WAV whose body stops mid-frame, mid-block: (bits, channels, frames, kept
+# body bytes).
+CUT_WAV = (6, 2, 44100 * 20, 1234567)
 
 # Stereo int16 saturation vector (tests/test_golden_decode.py): the left
 # channel overflows, the right underflows.
@@ -143,20 +172,66 @@ def synth_xa(rng, bits: int, channels: int, samples: int, bad=None) -> bytes:
     return bytes(hdr) + raw.tobytes()
 
 
-def run_cli(xa: pathlib.Path, wav: pathlib.Path, platform: str | None):
-    """``python -m bjxa_tpu_torch decode xa wav`` in a child process."""
+def synth_wav(rng, channels: int, frames: int) -> bytes:
+    """A canonical WAVE image of seeded audio-like PCM: two sines of random
+    pitch per channel plus noise."""
+    from bjxa_tpu_torch import dump_riff_header
+
+    t = np.arange(frames, dtype=np.float64)[:, None] * (2 * np.pi / 44100)
+    f = rng.uniform(80.0, 2000.0, size=(2, channels))
+    sig = 9000 * np.sin(f[0] * t) + 4000 * np.sin(f[1] * t)
+    sig += rng.normal(0.0, 400.0, size=(frames, channels))
+    pcm = np.clip(sig, -32768, 32767).astype("<i2")
+    return dump_riff_header(pcm.size * 2, 44100, channels) + pcm.tobytes()
+
+
+def run_cli(*args, platform: str | None):
+    """``python -m bjxa_tpu_torch <args>`` in a child process."""
     env = dict(os.environ)
     env.pop("BJXA_PLATFORM", None)
+    env.pop("BJXA_ENCODE_FIXPOINT_CHUNKS", None)
     if platform:
         env["BJXA_PLATFORM"] = platform
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p]
     )
     return subprocess.run(
-        [sys.executable, "-m", "bjxa_tpu_torch", "decode", str(xa),
-         str(wav)],
+        [sys.executable, "-m", "bjxa_tpu_torch", *map(str, args)],
         cwd=ROOT, env=env, capture_output=True, timeout=600,
     )
+
+
+def exact_err(a, b) -> int:
+    """Max |a - b| over two tensors that must be equal; raises if not."""
+    e = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+    if e or a.dtype != b.dtype or not a.equal(b):
+        raise AssertionError(f"kernel and plain version differ by {e}")
+    return e
+
+
+def ptxas_report(log: str) -> dict:
+    """``{kernel: {"registers": [...], "spill_bytes": n}}`` from the
+    ``-Xptxas -v`` log, over every instantiation of each kernel."""
+    out = {}
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            name = next((k for k in ("decode_lanes", "filter_lanes",
+                                     "encode_search")
+                         if f"{k}_kernel" in line), None)
+        if name is None:
+            continue
+        rep = out.setdefault(name, {"registers": set(), "spill_bytes": 0})
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rep["registers"].add(int(m.group(1)))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rep["spill_bytes"] = max(rep["spill_bytes"], int(m.group(1)),
+                                     int(m.group(2)))
+    return {k: {"registers": sorted(v["registers"]),
+                "spill_bytes": v["spill_bytes"]} for k, v in out.items()}
 
 
 def check_kernels(torch, dev, rng):
@@ -170,12 +245,7 @@ def check_kernels(torch, dev, rng):
             rng.integers(-(2**15), 2**15, size=(L, 2)).astype(np.int32)
         ).to(dev)
 
-    def err(a, b):
-        e = int((a.long() - b.long()).abs().max()) if a.numel() else 0
-        if e or not torch.equal(a, b):
-            raise AssertionError(f"kernel and plain version differ by {e}")
-        return e
-
+    err = exact_err
     worst = {"decode_lanes": 0, "filter_lanes": 0}
     for bits in (4, 6, 8):
         for B, L in DECODE_SHAPES:
@@ -226,6 +296,326 @@ def check_kernels(torch, dev, rng):
     return worst
 
 
+def encode_counted(torch, wav: bytes, bits: int, search: bool, device):
+    """The port's whole-file encode of a WAVE image on ``device``, step by
+    step as ``wav_to_xa`` takes it, with the search rounds counted through
+    the fixed point's ``run`` parameter.  Returns ``(xa bytes, rounds)``."""
+    from bjxa_tpu_torch import (
+        BLOCK_SAMPLES, RIFF_HEADER_SIZE, XAFormat, dump_xa_header, load_pcm,
+        parse_riff_header,
+    )
+    from bjxa_tpu_torch.ops import encode as tencode
+
+    rf = parse_riff_header(wav)
+    pcm = load_pcm(wav[RIFF_HEADER_SIZE:RIFF_HEADER_SIZE + rf.data_len_pcm],
+                   rf.channels)
+    nblocks = -(-rf.samples // BLOCK_SAMPLES)
+    padded = np.zeros((nblocks * BLOCK_SAMPLES, rf.channels), np.int16)
+    padded[: rf.samples] = pcm
+    lanes = torch.from_numpy(
+        padded.reshape(nblocks, BLOCK_SAMPLES, rf.channels)
+    ).to(device)
+    rounds = []
+
+    def run(lanes, states):
+        rounds.append(len(rounds))
+        return tencode.encode_search(lanes, states, bits=bits)
+
+    blocks = tencode.encode_stream_blocks(lanes, bits=bits, search=search,
+                                          run=run)
+    payload = blocks.cpu().numpy().tobytes()
+    fmt = XAFormat(
+        data_len=len(payload), samples=rf.samples,
+        samples_rate=rf.samples_rate, bits=bits, channels=rf.channels,
+        initial_state=((0, 0), (0, 0)),
+    ).validate()
+    return dump_xa_header(fmt) + payload, len(rounds)
+
+
+def check_encode_kernel(torch, dev, rng) -> int:
+    """Phase 2 for the search kernel: every bit depth, the main path's
+    round shape and ragged ones, full-scale noise and a sine plus noise,
+    random entry states.  Returns the max |kernel - plain| over profiles,
+    coded values, reconstruction and end state."""
+    from bjxa_tpu_torch.ops import cuda_encode
+
+    worst = 0
+    for bits in (4, 6, 8):
+        for B, L in ENCODE_SHAPES:
+            noise = rng.integers(-(2**15), 2**15, size=(B, 32, L))
+            t = np.arange(B * 32)[:, None] * (2 * np.pi / 41.0)
+            sine = (20000 * np.sin(t + np.arange(L))).reshape(B, 32, L)
+            sine += rng.normal(0.0, 2000.0, size=(B, 32, L))
+            for x in (noise, sine):
+                pcm = torch.from_numpy(
+                    np.clip(x, -32768, 32767).astype(np.int16)
+                ).to(dev)
+                st = torch.from_numpy(rng.integers(
+                    -(2**15), 2**15, size=(L, 2)).astype(np.int32)).to(dev)
+                got = cuda_encode.encode_search_lanes(pcm, st, bits=bits)
+                want = cuda_encode.encode_search_lanes_plain(pcm, st,
+                                                             bits=bits)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    worst = max(worst, exact_err(g, w))
+    return worst
+
+
+def encode_known_answers(torch, dev, rng) -> None:
+    """Phase 3 for the encoder: the ranking contract's vectors
+    (tests/test_encode.py) and a round trip through the card's decode."""
+    from bjxa_tpu_torch import wav_to_xa, xa_to_wav
+    from bjxa_tpu_torch.ops import cuda_encode
+
+    zeros = torch.zeros((16, 2), dtype=torch.int32, device=dev)
+    ties = rng.integers(-14, 14, size=(1, 32, 16)) * 1024
+    for pcm, want in ((ties, 0x00), (np.full((1, 32, 16), 1536), 0x01)):
+        prof, *_ = cuda_encode.encode_search_lanes(
+            torch.from_numpy(pcm.astype(np.int16)).to(dev), zeros, bits=6
+        )
+        if prof.cpu().reshape(-1).tolist() != [want] * 16:
+            raise AssertionError(f"ranking contract: want profile {want}")
+    frames = 200 * 32 + 9
+    wav = synth_wav(rng, 2, frames)
+    xa = wav_to_xa(wav, 6, device=dev)
+    padded = np.zeros((201 * 32, 2), np.int16)
+    padded[:frames] = np.frombuffer(wav[44:], "<i2").reshape(-1, 2)
+    _p, _c, recon, _e = cuda_encode.encode_search_lanes(
+        torch.from_numpy(padded.reshape(201, 32, 2)).to(dev),
+        zeros[:2].contiguous(), bits=6,
+    )
+    back = np.frombuffer(xa_to_wav(xa, device=dev)[44:], "<i2")
+    if not np.array_equal(back, recon.cpu().numpy().reshape(-1)[:2 * frames]):
+        raise AssertionError("decode of the card's encode != its recon")
+    phase(3, "encode_known_answers", rank_contract="match",
+          round_trip="decode(encode) == recon", blocks=201)
+
+
+def encode_main_path(torch, dev, rng) -> dict:
+    """Phase 4 for the encoder: the CLI on the card against the port's
+    plain path on the CPU, with the fixed point's rounds equal on both; a
+    cut WAV; the fixed point against the sequential search; and the main
+    path in-process with its launches counted.  Returns what phase 5 and
+    the summary need."""
+    from bjxa_tpu_torch import parse_xa_header, wav_to_xa
+    from bjxa_tpu_torch.ops import cuda_decode, cuda_encode, cuda_filter
+    from bjxa_tpu_torch.ops.encode import pick_encode_chunks
+
+    wavs, refs, cpu_rounds = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="bjxa_smoke_enc_") as tmp:
+        tmp = pathlib.Path(tmp)
+        for name, (bits, channels, frames, flags) in ENCODE_STREAMS.items():
+            wavs[name] = synth_wav(rng, channels, frames)
+            (tmp / f"{name}.wav").write_bytes(wavs[name])
+            search = "--truncate" not in flags
+            t0 = time.perf_counter()
+            refs[name], cpu_rounds[name] = encode_counted(
+                torch, wavs[name], bits, search, "cpu")
+            cpu_s = time.perf_counter() - t0
+            card, card_rounds = encode_counted(torch, wavs[name], bits,
+                                               search, dev)
+            if card != refs[name] or card_rounds != cpu_rounds[name]:
+                raise AssertionError(
+                    f"{name}: card took {card_rounds} rounds, the CPU"
+                    f" {cpu_rounds[name]}; XA equal: {card == refs[name]}")
+            res = run_cli("encode", *flags, tmp / f"{name}.wav",
+                          tmp / f"{name}.xa", platform=None)
+            if res.returncode != 0 or res.stderr:
+                raise AssertionError(f"{name}: CLI exit {res.returncode}"
+                                     f" {res.stderr.decode()[-2000:]}")
+            if (tmp / f"{name}.xa").read_bytes() != refs[name]:
+                raise AssertionError(f"{name}: card XA != CPU XA")
+            blocks = parse_xa_header(refs[name]).blocks
+            phase(4, "cli_xa_equals_cpu", stream=name, blocks=blocks,
+                  K=pick_encode_chunks(blocks, channels) if search else 1,
+                  rounds_card=card_rounds, rounds_cpu=cpu_rounds[name],
+                  xa_bytes=len(refs[name]), sha1=sha1(refs[name])[:12],
+                  cpu_plain_s=f"{cpu_s:.3f}")
+
+        # a body cut mid-frame: exit 1, the reference's label and the same
+        # prefix (header + whole blocks) on the card as on the CPU
+        bits, channels, frames, kept = CUT_WAV
+        cut = synth_wav(rng, channels, frames)[:44 + kept]
+        (tmp / "cut.wav").write_bytes(cut)
+        outs = {}
+        for plat in (None, "cpu"):
+            res = run_cli("encode", tmp / "cut.wav", tmp / f"cut_{plat}.xa",
+                          platform=plat)
+            if res.returncode != 1 or res.stderr != b"fread: End of file\n":
+                raise AssertionError(f"cut WAV on {plat or 'cuda'}: exit"
+                                     f" {res.returncode}"
+                                     f" {res.stderr.decode()[-2000:]}")
+            outs[plat] = (tmp / f"cut_{plat}.xa").read_bytes()
+        whole = kept // (2 * channels) // 32
+        if (outs[None] != outs["cpu"]
+                or len(outs[None]) != 32 + whole * channels * (4 * bits + 1)):
+            raise AssertionError("cut-WAV prefix differs")
+        phase(4, "cli_cut_wav", exit=1, stderr=repr("fread: End of file"),
+              whole_blocks=whole, prefix_bytes=len(outs[None]),
+              equals_cpu=True)
+
+    # the mid-size stream on the card: the fixed point gives the sequential
+    # search's bytes
+    bits, channels, frames = MID_STREAM
+    mid = synth_wav(rng, channels, frames)
+    mid_fix, mid_rounds = encode_counted(torch, mid, bits, True, dev)
+    os.environ["BJXA_ENCODE_FIXPOINT_CHUNKS"] = "0"
+    try:
+        t0 = time.perf_counter()
+        seq = wav_to_xa(mid, bits, device=dev)
+        seq_s = time.perf_counter() - t0
+    finally:
+        del os.environ["BJXA_ENCODE_FIXPOINT_CHUNKS"]
+    if seq != mid_fix:
+        raise AssertionError("mid-size stream: fixed point and sequential"
+                             " search bytes differ")
+    nblocks = parse_xa_header(mid_fix).blocks
+    phase(4, "fixpoint_equals_sequential", stream="stereo6_60s",
+          blocks=nblocks, K=pick_encode_chunks(nblocks, channels),
+          rounds=mid_rounds, sequential_bytes_equal=True)
+
+    # the main path in-process, counted: every kernel of it must launch,
+    # the search once per fixed-point round
+    big, short = wavs["stereo6_5min"], wavs["stereo8_23blocks"]
+    for mod in (cuda_decode, cuda_filter, cuda_encode):
+        mod.LAUNCHES = 0
+    got_big = wav_to_xa(big, device=dev)
+    big_launches = cuda_encode.LAUNCHES
+    got_short = wav_to_xa(short, 8, device=dev)
+    launches = cuda_encode.LAUNCHES
+    if got_big != refs["stereo6_5min"] or got_short != refs[
+        "stereo8_23blocks"
+    ]:
+        raise AssertionError("in-process card XA != CPU XA")
+    rounds = cpu_rounds["stereo6_5min"]
+    if big_launches != rounds:
+        raise AssertionError(f"encode kernel launched {big_launches} times,"
+                             f" want rounds = {rounds}")
+    if launches - big_launches < 1:
+        raise AssertionError("the short stream never launched the kernel")
+    blocks = parse_xa_header(refs["stereo6_5min"]).blocks
+    K = pick_encode_chunks(blocks, 2)
+    phase(4, "encode_main_path_launches", K=K, Bc=-(-blocks // K),
+          lanes=2 * K, rounds=rounds, encode_search=launches,
+          decode_lanes=cuda_decode.LAUNCHES, filter_lanes=cuda_filter.LAUNCHES)
+    return {"big": big, "ref": refs["stereo6_5min"], "rounds": rounds,
+            "K": K, "launches": launches, "mid": mid, "seq_s": seq_s}
+
+
+def encode_timings(torch, dev, gpu: str, enc: dict) -> tuple:
+    """Phase 5 for the encoder: the kernel against its plain version at the
+    main path's round shape, ``wav_to_xa`` end to end, the per-stage split
+    and the sequential search against the fixed point.  Returns the
+    kernel's and the plain version's ms."""
+    from bjxa_tpu_torch import (
+        BLOCK_SAMPLES, XAFormat, dump_xa_header, load_pcm, parse_riff_header,
+        wav_to_xa,
+    )
+    from bjxa_tpu_torch.ops import cuda_encode
+    from bjxa_tpu_torch.ops import encode as tencode
+    from bjxa_tpu_torch.ops.deflate import deflate_blocks
+
+    big, K = enc["big"], enc["K"]
+    rf = parse_riff_header(big)
+    C, nblocks = rf.channels, -(-rf.samples // BLOCK_SAMPLES)
+    Bc = -(-nblocks // K)
+    chunked = np.zeros((K * Bc * BLOCK_SAMPLES, C), np.int16)
+    chunked[: rf.samples] = np.frombuffer(big[44:], "<i2").reshape(-1, C)
+    lanes = torch.from_numpy(np.ascontiguousarray(
+        chunked.reshape(K, Bc, BLOCK_SAMPLES, C).transpose(1, 2, 0, 3)
+    ).reshape(Bc, BLOCK_SAMPLES, K * C)).to(dev)
+    st = torch.zeros((K * C, 2), dtype=torch.int32, device=dev)
+    k = cuda_ms(torch, lambda: cuda_encode.encode_search_lanes(
+        lanes, st, bits=6), inner=3)
+    p = cuda_ms(torch, lambda: cuda_encode.encode_search_lanes_plain(
+        lanes, st, bits=6), reps=3)
+    phase(5, "time_encode_search", gpu=repr(gpu),
+          shape=f"B={Bc},L={K * C},bits=6", kernel_ms=f"{k:.6f}",
+          plain_ms=f"{p:.6f}")
+
+    e2e = []
+    wav_to_xa(big, device=dev)
+    for _ in range(5):
+        t0 = time.perf_counter()
+        wav_to_xa(big, device=dev)
+        torch.cuda.synchronize()
+        e2e.append(time.perf_counter() - t0)
+    e2e_s = statistics.median(e2e)
+    total = rf.samples * C
+    phase(5, "time_wav_to_xa", gpu=repr(gpu), stream="stereo6_5min",
+          samples=total, rounds=enc["rounds"], seconds=f"{e2e_s:.6f}",
+          msamples_per_s=f"{total / e2e_s / 1e6:.3f}",
+          runs=[f"{s:.6f}" for s in e2e])
+
+    # where one encode's time goes, by stage (host clock, synchronized);
+    # each round runs from its search launch to the next one (the equality
+    # sync included), the last to the end of the unscramble
+    stages = {k: [] for k in ("stage", "h2d", "lanes", "rounds", "deflate",
+                              "d2h", "header")}
+    for _ in range(5):
+        marks = []
+
+        def run(lanes, states):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return tencode.encode_search(lanes, states, bits=6)
+
+        t = [time.perf_counter()]
+        pcm = load_pcm(big[44:44 + rf.data_len_pcm], C)
+        padded = np.zeros((nblocks * BLOCK_SAMPLES, C), np.int16)
+        padded[: rf.samples] = pcm
+        t.append(time.perf_counter())
+        pcm_d = torch.from_numpy(
+            padded.reshape(nblocks, BLOCK_SAMPLES, C)).to(dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        prof, coded, _r, _e, rounds = tencode.encode_search_fixpoint(
+            pcm_d, torch.zeros((C, 2), dtype=torch.int32, device=dev),
+            bits=6, num_chunks=K, run=run)
+        torch.cuda.synchronize()
+        t_fix = time.perf_counter()
+        blocks = deflate_blocks(prof, coded.transpose(1, 2), 6)
+        torch.cuda.synchronize()
+        t_def = time.perf_counter()
+        payload = blocks.cpu().numpy()
+        t_d2h = time.perf_counter()
+        fmt = XAFormat(data_len=payload.size, samples=rf.samples,
+                       samples_rate=rf.samples_rate, bits=6, channels=C,
+                       initial_state=((0, 0), (0, 0))).validate()
+        out = dump_xa_header(fmt) + payload.tobytes()
+        t_hdr = time.perf_counter()
+        if out != enc["ref"] or rounds != enc["rounds"]:
+            raise AssertionError("staged encode XA != CPU XA")
+        ends = marks[1:] + [t_fix]
+        stages["stage"].append((t[1] - t[0]) * 1e3)
+        stages["h2d"].append((t[2] - t[1]) * 1e3)
+        stages["lanes"].append((marks[0] - t[2]) * 1e3)
+        stages["rounds"].append([(b - a) * 1e3 for a, b in zip(marks, ends)])
+        stages["deflate"].append((t_def - t_fix) * 1e3)
+        stages["d2h"].append((t_d2h - t_def) * 1e3)
+        stages["header"].append((t_hdr - t_d2h) * 1e3)
+    split = {k: f"{statistics.median(v):.3f}" for k, v in stages.items()
+             if k != "rounds"}
+    per_round = [f"{statistics.median(r):.3f}" for r in zip(*stages["rounds"])]
+    phase(5, "wav_to_xa_stages_ms", gpu=repr(gpu), **split,
+          round_ms=per_round)
+
+    # sequential against the fixed point on the mid-size stream
+    mid = enc["mid"]
+    auto = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        wav_to_xa(mid, device=dev)
+        auto.append(time.perf_counter() - t0)
+    mrf = parse_riff_header(mid)
+    phase(5, "sequential_vs_auto", gpu=repr(gpu), stream="stereo6_60s",
+          samples=mrf.samples * mrf.channels,
+          sequential_s=f"{enc['seq_s']:.6f}",
+          auto_s=f"{statistics.median(auto):.6f}",
+          auto_runs=[f"{s:.6f}" for s in auto])
+    return k, p
+
+
 def main() -> int:
     import torch
 
@@ -240,7 +630,7 @@ def main() -> int:
         raise RuntimeError(f"bjxa_tpu_torch imported from {pkg}, not {ROOT}")
     from bjxa_tpu_torch import parse_xa_header, xa_to_wav
     from bjxa_tpu_torch.format.hexdsl import hex_to_bytes
-    from bjxa_tpu_torch.ops import _build, cuda_decode, cuda_filter
+    from bjxa_tpu_torch.ops import _build, cuda_decode, cuda_encode, cuda_filter
     from bjxa_tpu_torch.ops import decode as tdecode
 
     gpu = gpu_line()
@@ -255,13 +645,19 @@ def main() -> int:
     so = _build.build()
     _build.library()
     log = so.with_suffix(".log").read_text()
-    regs = sorted(set(int(r) for r in re.findall(r"Used (\d+) registers", log)))
+    report = ptxas_report(log)
+    if set(report) != {"decode_lanes", "filter_lanes", "encode_search"}:
+        raise AssertionError(f"ptxas log names kernels {sorted(report)}")
     phase(1, "build", seconds=f"{time.perf_counter() - t0:.3f}",
-          fresh=fresh, library=so.name, registers_per_thread=regs)
+          fresh=fresh, library=so.name,
+          **{f"{k}_registers": v["registers"] for k, v in report.items()},
+          **{f"{k}_spill_bytes": v["spill_bytes"]
+             for k, v in report.items()})
 
     # ---- phase 2: kernels against their plain versions ----------------------
     rng = np.random.default_rng(SEED)
     worst = check_kernels(torch, dev, rng)
+    worst["encode_search"] = check_encode_kernel(torch, dev, rng)
     phase(2, "kernels_equal_plain", **worst)
 
     # ---- phase 3: known answers ---------------------------------------------
@@ -281,6 +677,7 @@ def main() -> int:
     else:
         golden = "skipped (set BJXA_REFERENCE_DIR to the reference tree)"
     phase(3, "known_answers", saturation_sha1="match", golden=repr(golden))
+    encode_known_answers(torch, dev, rng)
 
     # ---- phase 4: the main path through the CLI -----------------------------
     with tempfile.TemporaryDirectory(prefix="bjxa_smoke_") as tmp:
@@ -292,7 +689,8 @@ def main() -> int:
             t0 = time.perf_counter()
             ref[name] = xa_to_wav(images[name], device="cpu")
             cpu_s = time.perf_counter() - t0
-            res = run_cli(tmp / f"{name}.xa", tmp / f"{name}.wav", None)
+            res = run_cli("decode", tmp / f"{name}.xa", tmp / f"{name}.wav",
+                          platform=None)
             if res.returncode != 0 or res.stderr:
                 raise AssertionError(f"{name}: CLI exit {res.returncode}"
                                      f" {res.stderr.decode()[-2000:]}")
@@ -310,7 +708,8 @@ def main() -> int:
         (tmp / "bad.xa").write_bytes(bad)
         outs = {}
         for plat in (None, "cpu"):
-            res = run_cli(tmp / "bad.xa", tmp / f"bad_{plat}.wav", plat)
+            res = run_cli("decode", tmp / "bad.xa", tmp / f"bad_{plat}.wav",
+                          platform=plat)
             if res.returncode != 1 or res.stderr != (
                 b"bjxa_decode: Protocol error\n"
             ):
@@ -347,8 +746,8 @@ def main() -> int:
 
     # the main path in-process, counted: every kernel of it must launch
     short = images["stereo8_23blocks"]
-    cuda_decode.LAUNCHES = 0
-    cuda_filter.LAUNCHES = 0
+    for mod in (cuda_decode, cuda_filter, cuda_encode):
+        mod.LAUNCHES = 0
     got_big = xa_to_wav(big, device=dev)
     big_launches = cuda_decode.LAUNCHES
     got_short = xa_to_wav(short, device=dev)
@@ -363,7 +762,8 @@ def main() -> int:
         raise AssertionError(f"a kernel of the main path never ran:"
                              f" {launches}")
     phase(4, "main_path_launches", K=K, Bc=Bp // K, lanes=K * fmt.channels,
-          rounds=rounds, **launches)
+          rounds=rounds, **launches, encode_search=cuda_encode.LAUNCHES)
+    enc = encode_main_path(torch, dev, rng)
 
     # ---- phase 5: timings on the card ---------------------------------------
     ms = {}
@@ -444,6 +844,8 @@ def main() -> int:
     phase(5, "xa_to_wav_stages_ms", gpu=repr(gpu),
           **{k: f"{statistics.median(v):.3f}" for k, v in stages.items()})
 
+    enc_ms = encode_timings(torch, dev, gpu, enc)
+
     summary = {"kernels": [
         {"name": "decode_lanes", "route": "cuda",
          "source": "bjxa_tpu_torch/csrc/decode_lanes.cu",
@@ -459,6 +861,12 @@ def main() -> int:
          "max_abs_err": worst["filter_lanes"],
          "ms": ms[("filter_lanes", True)][0],
          "plain_ms": ms[("filter_lanes", True)][1]},
+        {"name": "encode_search", "route": "cuda",
+         "source": "bjxa_tpu_torch/csrc/encode_search.cu",
+         "replaces": "bjxa_tpu/ops/pallas_encode.py:52",
+         "launches": enc["launches"],
+         "max_abs_err": worst["encode_search"],
+         "ms": enc_ms[0], "plain_ms": enc_ms[1]},
     ]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

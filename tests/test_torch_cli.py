@@ -137,7 +137,8 @@ def test_usage_paths_match(cpu_platform, args):
     assert tout[:6] == jout[:6]
     usage = tout.decode() if args == ["help"] else terr
     assert "decode [<xa file> [<wav file>]]" in usage
-    assert "encode" not in usage and "corpus" not in usage
+    assert "encode [--bits <4|6|8>] [--truncate]" in usage
+    assert "corpus" not in usage and "abi" not in usage
 
 
 @pytest.mark.parametrize("flag", ["--streaming", "--devices",
