@@ -2,11 +2,12 @@
 hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of :mod:`bjxa_tpu` (the JAX/Pallas engine, kept as the reference).
-This package holds the whole-file XA -> WAVE decode path and the
-WAVE -> XA profile-search encode path: header parsing and validation with
-the same typed errno-style errors, the chunk-parallel exact fixed-point
-decoder and search encoder, and a ``bjxa``-compatible ``decode``/``encode``
-CLI.  It imports no JAX.
+This package holds the whole-file XA -> WAVE decode path, the
+WAVE -> XA profile-search encode path and the batched corpus engine:
+header parsing and validation with the same typed errno-style errors, the
+chunk-parallel exact fixed-point decoder and search encoder, batch decode
+and encode over files x channels lanes, and a ``bjxa``-compatible
+``decode``/``encode``/``corpus`` CLI.  It imports no JAX.
 """
 
 __version__ = "0.5.0"
@@ -34,6 +35,7 @@ from bjxa_tpu_torch.format import (
     load_pcm,
 )
 from bjxa_tpu_torch.api import decode_xa, xa_to_wav, encode_pcm, wav_to_xa
+from bjxa_tpu_torch.parallel.corpus import decode_corpus, encode_corpus
 
 __all__ = [
     "__version__",
@@ -59,4 +61,6 @@ __all__ = [
     "xa_to_wav",
     "encode_pcm",
     "wav_to_xa",
+    "decode_corpus",
+    "encode_corpus",
 ]

@@ -3,9 +3,10 @@
 Same surface as the reference CLI (``src/bjxa.c:36-52``) for the actions
 ported so far: ``help``, ``decode [<xa> [<wav>]]`` and ``encode [--bits
 <4|6|8>] [--truncate] [<wav> [<xa>]]``, with ``-`` or omitted filenames
-meaning stdin/stdout.  Exit codes, output bytes and error labels are those
-of :mod:`bjxa_tpu.cli` (the reference's perror style, ``<failing stage>:
-<strerror>``), so scripted callers keep working.  As there, ``encode``
+meaning stdin/stdout, and :mod:`bjxa_tpu.cli`'s ``corpus`` action for
+whole directories on one device.  Exit codes, output bytes and error
+labels are those of :mod:`bjxa_tpu.cli` (the reference's perror style,
+``<failing stage>: <strerror>``), so scripted callers keep working.  As there, ``encode``
 runs the filter-profile search by default and ``--truncate`` reproduces
 the reference's truncation-only encoder byte-for-byte.
 
@@ -54,12 +55,33 @@ Available actions:
     profile search (reference-compatible output).
     Encodes on the CUDA device; BJXA_PLATFORM=cpu
     encodes on the CPU instead.
+
+  corpus [--batch-files <n>] [--depth <k>] [--manifest <path>]
+         [--encode [--bits <4|6|8>] [--truncate]] [--trace <dir>]
+         [--stats] <xa dir> <wav dir>
+    Decode every *.xa file in a directory to WAV files,
+    batched on the device, restartable via a JSONL
+    manifest (reruns skip already-converted files).
+    --depth bounds in-flight device batches and the
+    host write backlog (default 3).
+    With --encode (plus optional --bits/--truncate) the
+    direction reverses: every *.wav encodes to XA.
+    --trace <dir> captures a torch.profiler trace;
+    --stats prints throughput rates.
+    Runs on the CUDA device; BJXA_PLATFORM=cpu runs on
+    the CPU instead.
 """
 
 #: Decode options of :mod:`bjxa_tpu.cli` that this tool does not have yet.
 NOT_PORTED = ("--streaming", "--devices", "--segment-blocks")
 #: Encode options of :mod:`bjxa_tpu.cli` that this tool does not have yet.
 ENCODE_NOT_PORTED = ("--devices", "--segment-blocks")
+#: Corpus options of :mod:`bjxa_tpu.cli` that this tool does not have yet
+#: (multi-device and multi-process runs), and their environment variables.
+CORPUS_NOT_PORTED = ("--devices", "--coordinator", "--num-processes",
+                     "--process-id")
+CORPUS_ENV_NOT_PORTED = ("BJXA_DEVICES", "BJXA_COORDINATOR",
+                         "BJXA_NUM_PROCESSES", "BJXA_PROCESS_ID")
 
 
 def _usage(prog: str, file) -> None:
@@ -330,6 +352,120 @@ def _encode_truncated(fout, body, rf, bits: int, search: bool, device) -> int:
     return 1
 
 
+def _cmd_corpus(args: list[str], prog: str) -> int:
+    batch_files = 64
+    depth = 3
+    manifest = None
+    encode = False
+    bits = 6
+    search = True
+    saw_encode_opts = False
+    trace_dir = None
+    stats = False
+
+    def _take_value(args):
+        if len(args) < 2:
+            return None, args[1:]
+        return args[1], args[2:]
+
+    while args and args[0].startswith("--"):
+        if args[0] == "--batch-files":
+            val, args = _take_value(args)
+            if val is None or not val.isdigit() or int(val) < 1:
+                return _fail(prog, "Invalid --batch-files")
+            batch_files = int(val)
+        elif args[0] == "--depth":
+            val, args = _take_value(args)
+            if val is None or not val.isdigit() or int(val) < 1:
+                return _fail(prog, "Invalid --depth")
+            depth = int(val)
+        elif args[0] == "--manifest":
+            val, args = _take_value(args)
+            if val is None:
+                return _fail(prog, "Missing manifest path")
+            manifest = val
+        elif args[0] == "--encode":
+            encode = True
+            args = args[1:]
+        elif args[0] == "--bits":
+            val, args = _take_value(args)
+            if val is None or val not in ("4", "6", "8"):
+                return _fail(prog, "Invalid number of bits per sample")
+            bits = int(val)
+            saw_encode_opts = True
+        elif args[0] == "--truncate":
+            search = False
+            saw_encode_opts = True
+            args = args[1:]
+        elif args[0] == "--trace":
+            val, args = _take_value(args)
+            if val is None:
+                return _fail(prog, "Missing trace directory")
+            trace_dir = val
+        elif args[0] == "--stats":
+            stats = True
+            args = args[1:]
+        elif args[0] in CORPUS_NOT_PORTED:
+            return _fail(prog, f"{args[0]} is not yet ported")
+        else:
+            return _fail(prog, f"Unknown option {args[0]}")
+    if saw_encode_opts and not encode:
+        return _fail(prog, "--bits/--truncate require --encode")
+    if len(args) != 2:
+        return _fail(prog, "corpus needs an input and an output directory")
+    in_dir, out_dir = args
+    if not os.path.isdir(in_dir):
+        sys.stderr.write(f"corpus: {in_dir}: Not a directory\n")
+        return 1
+    for var in CORPUS_ENV_NOT_PORTED:
+        if os.environ.get(var):
+            return _fail(prog, f"{var} is not yet ported")
+    device, why = _select_device("convert")
+    if device is None:
+        sys.stderr.write(f"bjxa: {why}\n")
+        return 1
+
+    from bjxa_tpu_torch.parallel.corpus import decode_corpus, encode_corpus
+    from bjxa_tpu_torch.utils.profiler import Profiler
+
+    try:
+        with Profiler(trace_dir).trace():
+            if encode:
+                res = encode_corpus(
+                    in_dir, out_dir, device=device, bits=bits,
+                    search=search, batch_files=batch_files,
+                    manifest_path=manifest, depth=depth,
+                )
+            else:
+                res = decode_corpus(
+                    in_dir, out_dir, device=device, batch_files=batch_files,
+                    manifest_path=manifest, depth=depth,
+                )
+    except (BjxaError, OSError) as e:
+        _perror("corpus", e)
+        return 1
+    for path, why in sorted(res.failed.items()):
+        sys.stderr.write(f"corpus: {path}: {why}\n")
+
+    counters = res.counters
+    sys.stdout.write(
+        f"converted {res.converted} skipped {res.skipped}"
+        f" failed {len(res.failed)}"
+        f" samples {counters.samples}\n"
+    )
+    if stats:
+        rates = counters.rates()
+        sys.stdout.write(
+            "stats"
+            f" files_per_s {rates['files_per_s']:.2f}"
+            f" msamples_per_s {rates['msamples_per_s']:.2f}"
+            f" mb_in_per_s {rates['mb_in_per_s']:.2f}"
+            f" mb_out_per_s {rates['mb_out_per_s']:.2f}"
+            f" elapsed_s {rates['elapsed_s']:.3f}\n"
+        )
+    return 1 if res.failed else 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv if argv is None else argv)
     prog = argv[0] if argv else "bjxa"
@@ -345,6 +481,8 @@ def main(argv: list[str] | None = None) -> int:
         return _cmd_decode(rest, prog)
     if action == "encode":
         return _cmd_encode(rest, prog)
+    if action == "corpus":
+        return _cmd_corpus(rest, prog)
     return _fail(prog, "Unknown action")
 
 

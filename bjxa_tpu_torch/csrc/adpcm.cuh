@@ -1,5 +1,6 @@
-// Shared device helpers for the XA decode kernels: gain tables, int16 sign
-// extension and one step of the two-tap ADPCM prediction filter.
+// Shared device helpers for the XA decode kernels: gain tables, the 4/6/8-bit
+// payload unpack, int16 sign extension and one step of the two-tap ADPCM
+// prediction filter.
 //
 // Integer semantics are the reference's (src/libbjxa.c:533-578) and those
 // of the plain PyTorch versions in bjxa_tpu_torch/ops/filter.py, bit for bit:
@@ -37,6 +38,31 @@ __device__ __forceinline__ int32_t gain_k1(int factor) {
 // The low 16 bits of v as a signed int16, widened to int32.
 __device__ __forceinline__ int32_t sign16(uint32_t v) {
   return static_cast<int32_t>(static_cast<int16_t>(static_cast<uint16_t>(v)));
+}
+
+// Sample n of a block in the top bits of a 16-bit word, from the block's
+// 4*BITS payload bytes (the reference's inflate, src/libbjxa.c:286-345).
+// n is a constant once the caller's sample loop is unrolled.  Shifts stay
+// unsigned: a left shift of a negative int is undefined in C++17.
+template <int BITS>
+__device__ __forceinline__ uint32_t unpack_sample(const uint32_t* bytes,
+                                                  int n) {
+  if constexpr (BITS == 8) {
+    return bytes[n] << 8;
+  } else if constexpr (BITS == 4) {
+    const uint32_t bb = bytes[n / 2];
+    return (n % 2 == 0) ? (bb & 0xF0u) << 8 : (bb & 0x0Fu) << 12;
+  } else {  // 6: three bytes -> four samples through a 24-bit window
+    const int base = 3 * (n / 4);
+    const uint32_t w =
+        (bytes[base] << 16) | (bytes[base + 1] << 8) | bytes[base + 2];
+    switch (n % 4) {
+      case 0: return (w & 0x00FC0000u) >> 8;
+      case 1: return (w & 0x0003F000u) >> 2;
+      case 2: return (w & 0x00000FC0u) << 4;
+      default: return (w & 0x0000003Fu) << 10;
+    }
+  }
 }
 
 // C's truncating g / 256 (right shift of a negative int is arithmetic

@@ -55,25 +55,7 @@ decode_lanes_kernel(const uint8_t* __restrict__ blocks_t,
                     : nullptr;
 #pragma unroll
     for (int n = 0; n < kBlockSamples; ++n) {
-      // sample n in the top bits of a 16-bit word; shifts stay unsigned
-      // (a left shift of a negative int is undefined in C++17)
-      uint32_t v;
-      if constexpr (BITS == 8) {
-        v = bytes[n] << 8;
-      } else if constexpr (BITS == 4) {
-        const uint32_t bb = bytes[n / 2];
-        v = (n % 2 == 0) ? (bb & 0xF0u) << 8 : (bb & 0x0Fu) << 12;
-      } else {  // 6: three bytes -> four samples through a 24-bit window
-        const int base = 3 * (n / 4);
-        const uint32_t w =
-            (bytes[base] << 16) | (bytes[base + 1] << 8) | bytes[base + 2];
-        switch (n % 4) {
-          case 0: v = (w & 0x00FC0000u) >> 8; break;
-          case 1: v = (w & 0x0003F000u) >> 2; break;
-          case 2: v = (w & 0x00000FC0u) << 4; break;
-          default: v = (w & 0x0000003Fu) << 10; break;
-        }
-      }
+      const uint32_t v = unpack_sample<BITS>(bytes, n);
       const int32_t s = filter_step(sign16(v) >> range, k0, k1, p0, p1);
       if constexpr (WITH_OUTPUT) out[n * lanes] = static_cast<int16_t>(s);
     }

@@ -36,6 +36,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     # blocks_t, state, pcm, end, B, L, bits, with_output, device, stream
     "bjxa_decode_lanes": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # prof, words, state, pcm, end, B, L, bits, with_output, device, stream
+    "bjxa_decode_words": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # samples, k0, k1, shift, state, pcm, end, B, L, with_output, device,
     # stream
     "bjxa_filter_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

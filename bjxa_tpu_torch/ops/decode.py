@@ -1,7 +1,7 @@
-"""Whole-file XA decode pipelines on one device.
+"""XA decode pipelines on one device: whole files and corpus batches.
 
-Port of the main-path subset of :mod:`bjxa_tpu.ops.decode`.  Two pipelines
-share the lane-vectorized filter:
+Port of the single-device subset of :mod:`bjxa_tpu.ops.decode`.  Two
+whole-file pipelines share the lane-vectorized filter:
 
 * :func:`decode_arrays` — one file, lanes = channels.  The honest
   sequential-over-blocks recurrence, used for short streams; on a CUDA
@@ -17,8 +17,15 @@ share the lane-vectorized filter:
   (:mod:`bjxa_tpu_torch.ops.cuda_decode`).
 
 Hosts call :func:`decode_bytes`, which picks a pipeline, checks profile
-validity (EPROTO taxonomy) and trims the padded tail.  Every function that
-touches a device takes it explicitly; nothing is chosen implicitly.
+validity (EPROTO taxonomy) and trims the padded tail.
+
+The batch decoders (:func:`decode_batch_lanes`, :func:`decode_batch_words`,
+:func:`decode_batch_packed`) run many independent streams at once, one lane
+per file channel: the corpus engine's path.  The packed-words layout
+(:func:`words_from_blocks_host`) feeds the words kernel
+(:mod:`bjxa_tpu_torch.ops.cuda_decode_words`).  Every function that touches
+a device takes it explicitly, or works on the device of its tensors;
+nothing is chosen implicitly.
 
 Reference semantic anchors: block loop ``src/libbjxa.c:602-661``; stereo
 blocks are channel-major within an effective block and PCM is interleaved
@@ -27,10 +34,12 @@ at stride ``channels``.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from bjxa_tpu_torch.errors import BjxaProtocolError
+from bjxa_tpu_torch.errors import BjxaInvalidState, BjxaProtocolError
 from bjxa_tpu_torch.format.xa import XAFormat
 from bjxa_tpu_torch.ops.cuda_decode import fused_decode_lanes
 from bjxa_tpu_torch.ops.filter import decode_lanes
@@ -182,6 +191,158 @@ def decode_fixpoint_lanes(
     return fixpoint_lanes_core(
         blocks_t, state, num_chunks, channels, b_total, bits=bits
     )
+
+
+# --------------------------------------------------------------------------
+# batches of streams (lanes = files x channels): the corpus engine's path
+# --------------------------------------------------------------------------
+
+
+def decode_batch_lanes(blocks_t: torch.Tensor, state: torch.Tensor, *,
+                       bits: int):
+    """Decode lane-major raw blocks of many independent streams.
+
+    Lanes are channel streams (files x channels, in any order the caller
+    chooses): the host stages ``uint8[B, S, L]`` straight from file bytes
+    and PCM comes back in the same lane order.  Runs the decode kernel
+    (:func:`~bjxa_tpu_torch.ops.cuda_decode.fused_decode_lanes`) on a CUDA
+    device, its plain version on the CPU.
+
+    Args:
+      blocks_t: ``uint8[B, S, L]`` raw blocks, lane-minor.
+      state:    ``int32[L, 2]``.
+
+    Returns ``(pcm int16[B, 32, L], end int32[L, 2], valid bool[B, L])``.
+    """
+    valid = (blocks_t[:, 0, :] >> 4) < 5
+    pcm, end = fused_decode_lanes(blocks_t, state, bits=bits)
+    return pcm, end, valid
+
+
+def _sign_extend_32(w: torch.Tensor) -> torch.Tensor:
+    """int64 values in ``[0, 2**32)`` -> the int32 with the same bits."""
+    return ((w ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def pack_words_from_lanes(blocks_t: torch.Tensor, *, bits: int):
+    """Pack lane-major raw blocks into the packed-words layout on the
+    tensor's device.
+
+    ``uint8[B, S, L] -> (prof uint8[B, L], words int32[B, bits, L])``
+    where word ``w`` holds payload bytes ``4w..4w+3`` little-endian (the
+    payload is ``4*bits`` bytes, so there are exactly ``bits`` words per
+    block).  The arithmetic is int64, since a byte shifted to bit 24 does
+    not fit a signed int32.  Hosts stage words with
+    :func:`words_from_blocks_host` instead.
+    """
+    B, S, L = blocks_t.shape
+    if S != 4 * bits + 1:
+        raise ValueError(
+            f"pack_words_from_lanes: block size {S} != 4*{bits}+1"
+        )
+    pay = blocks_t[:, 1:, :].to(torch.int64).reshape(B, bits, 4, L)
+    w = (pay[:, :, 0] | (pay[:, :, 1] << 8) | (pay[:, :, 2] << 16)
+         | (pay[:, :, 3] << 24))
+    return blocks_t[:, 0, :].contiguous(), _sign_extend_32(w)
+
+
+def words_to_blocks(prof: torch.Tensor, words: torch.Tensor, *, bits: int):
+    """Inverse of :func:`pack_words_from_lanes`: reassemble ``uint8[B, S,
+    L]`` lane-major raw blocks from the words layout (the words kernel's
+    plain version decodes through it)."""
+    B, W, L = words.shape
+    if W != bits:
+        raise ValueError(f"words_to_blocks: {W} words per block, bits={bits}")
+    wu = words.to(torch.int64) & 0xFFFFFFFF
+    planes = [((wu >> (8 * q)) & 0xFF).to(torch.uint8) for q in range(4)]
+    payload = torch.stack(planes, dim=2).reshape(B, 4 * W, L)
+    return torch.cat([prof.to(torch.uint8)[:, None, :], payload], dim=1)
+
+
+def words_from_blocks_host(
+    blocks_t: np.ndarray, bits: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """numpy twin of :func:`pack_words_from_lanes` for host staging.
+
+    ``uint8[B, S, L] -> (prof uint8[B, L], words int32[B, bits, L])``: one
+    strided copy followed by a free little-endian int32 view.
+    """
+    B, S, L = blocks_t.shape
+    if S != 4 * bits + 1:
+        raise ValueError(
+            f"words_from_blocks_host: block size {S} != 4*{bits}+1"
+        )
+    prof = np.ascontiguousarray(blocks_t[:, 0, :])
+    pay = np.ascontiguousarray(
+        blocks_t[:, 1:, :].reshape(B, bits, 4, L).transpose(0, 1, 3, 2)
+    )
+    words = pay.view("<i4").reshape(B, bits, L)  # torch-friendly strides
+    return prof, words
+
+
+def decode_batch_words(prof: torch.Tensor, words: torch.Tensor,
+                       state: torch.Tensor, *, bits: int):
+    """Decode packed-words lane-major blocks of many independent streams.
+
+    Same lane semantics as :func:`decode_batch_lanes`; the payload arrives
+    as little-endian int32 words (:func:`pack_words_from_lanes`).  Runs
+    the words kernel on a CUDA device, its plain version on the CPU.
+
+    Args:
+      prof:  ``uint8[B, L]``; words: ``int32[B, bits, L]``;
+      state: ``int32[L, 2]``.
+
+    Returns ``(pcm int16[B, 32, L], end int32[L, 2], valid bool[B, L])``:
+    flat lanes, no padding, ``end`` the true end state.
+    """
+    from bjxa_tpu_torch.ops.cuda_decode_words import fused_decode_words
+
+    valid = (prof >> 4) < 5
+    pcm, end = fused_decode_words(prof, words, state, bits=bits)
+    return pcm, end, valid
+
+
+def packed_layout(blocks: int, lanes: int, bits: int):
+    """Element offsets of the single-buffer batch staging layout.
+
+    A corpus batch crosses to the device as ONE int32 buffer that
+    concatenates the three inputs of :func:`decode_batch_words`:
+
+    ``[words int32[B, bits, L] | prof bytes packed 4/int32 | state int32[L, 2]]``
+
+    Returns ``(n_words, n_prof_words, n_state)`` element counts.
+    """
+    n_words = blocks * bits * lanes
+    n_prof = -(-(blocks * lanes) // 4)
+    return n_words, n_prof, lanes * 2
+
+
+def decode_batch_packed(buf: torch.Tensor, *, bits: int, blocks: int,
+                        lanes: int) -> torch.Tensor:
+    """Decode one corpus batch from a single packed int32 staging buffer.
+
+    Single-transfer twin of :func:`decode_batch_words` (layout:
+    :func:`packed_layout`); the buffer is split on its device with views
+    (the profile plane is a uint8 view of the bytes the host staged
+    there).  Returns the PCM only, FLAT (``int16[blocks*32*lanes]``,
+    reshape to ``[blocks, 32, lanes]``): profile validity is the host's
+    job (it staged the profile bytes) and corpus decode never needs the
+    end state.
+    """
+    from bjxa_tpu_torch.ops.cuda_decode_words import fused_decode_words
+
+    B, W, L = blocks, bits, lanes
+    nw, npr, nst = packed_layout(B, L, bits)
+    if buf.dtype != torch.int32 or tuple(buf.shape) != (nw + npr + nst,):
+        raise ValueError(
+            f"decode_batch_packed: want int32[{nw + npr + nst}], got"
+            f" {buf.dtype}{list(buf.shape)}"
+        )
+    words = buf[:nw].reshape(B, W, L)
+    prof = buf[nw : nw + npr].view(torch.uint8)[: B * L].reshape(B, L)
+    state = buf[nw + npr :].reshape(L, 2)
+    pcm, _end = fused_decode_words(prof, words, state, bits=bits)
+    return pcm.reshape(-1)
 
 
 # --------------------------------------------------------------------------
@@ -344,3 +505,22 @@ def decode_bytes(
     frames, valid = decode_bytes_validity(payload, fmt, device=device)
     check_valid(valid, fmt.channels)
     return frames[: fmt.samples].cpu().numpy()
+
+
+#: Byte budget (payload + PCM) above which :mod:`bjxa_tpu` switches a file
+#: to its segmented bounded-memory pipelines; override with
+#: ``BJXA_SEGMENT_THRESHOLD``.  The port has no segmented pipeline yet: the
+#: corpus engine sends such files through the whole-file path instead
+#: (same bytes).
+SEGMENT_THRESHOLD = 256 << 20
+
+
+def segment_threshold() -> int:
+    """The active segmentation byte threshold (env-overridable)."""
+    env = os.environ.get("BJXA_SEGMENT_THRESHOLD", "")
+    if not env:
+        return SEGMENT_THRESHOLD
+    try:
+        return int(env)
+    except ValueError:
+        raise BjxaInvalidState(f"Invalid BJXA_SEGMENT_THRESHOLD {env!r}")

@@ -1,6 +1,7 @@
 """XA encode pipelines on one device.
 
-Port of the whole-file subset of :mod:`bjxa_tpu.ops.encode`.  Two encoders:
+Port of the single-device subset of :mod:`bjxa_tpu.ops.encode`.  Two
+encoders:
 
 * :func:`encode_truncate` — byte-compatible with the reference encoder,
   which performs *no* prediction: profile byte 0, keep the top ``bits`` of
@@ -16,8 +17,10 @@ Blocks stay sequential (state feedback), so one stream alone would give
 the search only ``channels`` lanes.  :func:`encode_search_fixpoint` lifts
 that to ``K * channels`` lanes with the decoder's boundary-state fixed
 point, bit-identical to the sequential search; :func:`pick_encode_chunks`
-chooses K.  :func:`encode_stream_blocks` is what the entry points call.
-Every function works on the device of the tensors it is given.
+chooses K.  :func:`encode_stream_blocks` is what the whole-file entry
+points call; :func:`encode_batch_blocks` is the corpus engine's batch of
+many streams.  Every function works on the device of the tensors it is
+given.
 """
 
 from __future__ import annotations
@@ -212,3 +215,30 @@ def encode_stream_blocks(
         profiles, coded, _recon, _end = run(pcm, state)
     # [B, 32, C] -> [B, C, 32] so packed bytes land channel-major
     return deflate_blocks(profiles, coded.transpose(1, 2), bits)
+
+
+def encode_batch_blocks(pcm: torch.Tensor, *, bits: int,
+                        search: bool) -> torch.Tensor:
+    """Corpus-batch encode: PCM lanes of many streams -> packed XA blocks.
+
+    Every lane (file x channel) starts from the zero state the emitted
+    headers carry.  ``search`` runs ONE sequential search over all blocks
+    and lanes (one launch of the search kernel on a CUDA device), not the
+    fixed point: the batch's lanes are its parallelism.  Bytes equal
+    per-file :func:`encode_stream_blocks`, since lanes never interact.
+
+    Args:
+      pcm: int-like ``[B, 32, L]`` lane-major samples (zero-padded final
+        block), on the device that does the work.
+
+    Returns raw XA blocks as a FLAT ``uint8`` tensor on ``pcm``'s device
+    (host layout ``[B, L, block_size]``: channel-major within each
+    effective block, the file layout).
+    """
+    state = torch.zeros((pcm.shape[-1], 2), dtype=torch.int32,
+                        device=pcm.device)
+    if search:
+        profiles, coded, _recon, _end = encode_search(pcm, state, bits=bits)
+    else:
+        profiles, coded = encode_truncate(pcm)
+    return deflate_blocks(profiles, coded.transpose(1, 2), bits).reshape(-1)

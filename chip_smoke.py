@@ -16,15 +16,21 @@ Phases, one line each (any failure raises and exits nonzero):
    golden fixtures when ``BJXA_REFERENCE_DIR`` points at them), the
    encoder's ranking-contract vectors, and an encode -> decode round trip
    that gives back the search's own reconstruction;
-4. both main paths through the CLI (``python -m bjxa_tpu_torch decode`` and
-   ``encode``) on seeded synthetic streams, a 5-minute stereo file at full
-   size among them, byte-compared with the port's plain path on the CPU;
-   the launch counters show the in-process decode and encode went through
-   every kernel, and the encode's fixed point took as many rounds on the
-   card as on the CPU;
+4. the main paths through the CLI (``python -m bjxa_tpu_torch decode``,
+   ``encode`` and ``corpus [--encode]``) on seeded synthetic streams, a
+   5-minute stereo file and a 32-file corpus at full size among them,
+   byte-compared with the port's plain path on the CPU (or, where the CPU
+   would take too long, the card's per-file path, which the CPU checks on a
+   few files); the launch counters show the in-process decode, encode and
+   corpus runs went through every kernel of their path, and the encode's
+   fixed point took as many rounds on the card as on the CPU; the encode
+   corpus's one search launch gives the CLI's XA bytes and equals the plain
+   search on the card over the first and last blocks of its batch;
 5. timings on the card (CUDA events, median of repeats after warm-up), the
-   per-stage split of each main path, and the encoder's sequential search
-   against its fixed point.
+   per-stage split of each main path, the encoder's sequential search
+   against its fixed point, the words kernel against the lanes kernel and
+   the search kernel alone on a corpus batch, and the corpus engine end to
+   end, split by the stages it times itself (``Counters.stage_ms``).
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -99,6 +105,36 @@ MID_STREAM = (6, 2, 44100 * 60)
 # body bytes).
 CUT_WAV = (6, 2, 44100 * 20, 1234567)
 
+# Words-kernel checks, (B, L, bits): the old bench.py headline first (16,384
+# stereo 8-bit files x 64 blocks), then ragged shapes.
+WORDS_SHAPES = ((64, 32768, 8), (7, 8191, 4), (7, 8191, 6), (300, 3, 4),
+                (300, 3, 6))
+# The corpus through the CLI, bench.py's corpus shape: 32 stereo 8-bit files
+# of 20,672 blocks, 16 files a batch -> 2 batches of L = 32 lanes x 20,736
+# blocks (43.7 MB of XA, 84.7 MB of PCM).
+CORPUS = (32, 2, 8, 20672, 16)  # files, channels, bits, blocks, batch files
+# Seconds of CPU reference decodes after which the rest of the corpus is
+# compared with the card's per-file decode instead.
+CORPUS_CPU_BUDGET_S = 60.0
+# A small mixed directory, card against CPU: name -> (bits, channels,
+# blocks, flaw), flaw "bad" (an invalid profile) or "cut" (truncated).
+MIXED_CORPUS = {
+    "m4_1": (4, 1, 700, None), "s4_2": (4, 2, 333, None),
+    "m6_1": (6, 1, 1500, None), "s6_2": (6, 2, 900, None),
+    "m8_1": (8, 1, 64, None), "s8_2": (8, 2, 2100, None),
+    "bad": (6, 2, 800, "bad"), "cut": (8, 1, 500, "cut"),
+}
+# The encode corpus through the CLI: 16 stereo 10-second WAVs, 6-bit search
+# (one batch: 13,782 blocks over 32 lanes), and two short WAVs compared
+# with the CPU.
+ENCODE_CORPUS = (16, 2, 441000)  # files, channels, frames
+ENCODE_CORPUS_SHORT = ((2, 3000), (1, 4100))  # (channels, frames)
+# Files of the encode corpus also encoded on the CPU (lanes 0-1 and 30-31
+# of its batch), and the blocks at each end of the batch that the plain
+# search re-runs on the card against the batch's own kernel launch.
+ENCODE_CORPUS_CPU_FILES = (0, 15)
+ENCODE_CORPUS_PLAIN_BLOCKS = 128
+
 # Stereo int16 saturation vector (tests/test_golden_decode.py): the left
 # channel overflows, the right underflows.
 SATURATION_XA = (
@@ -106,6 +142,10 @@ SATURATION_XA = (
     " 00000000 20" + " 7f7f7f7f" * 8 + " 20" + " 80808080" * 8
 )
 SATURATION_WAV_SHA1 = "56ba3f62bf27ac9fd19cd97bcda06b4db327e612"
+
+
+#: The kernels of the port, by the name of their ``csrc`` source.
+KERNELS = ("decode_lanes", "filter_lanes", "encode_search", "decode_words")
 
 
 def sha1(data: bytes) -> str:
@@ -216,9 +256,7 @@ def ptxas_report(log: str) -> dict:
     name = None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
-            name = next((k for k in ("decode_lanes", "filter_lanes",
-                                     "encode_search")
-                         if f"{k}_kernel" in line), None)
+            name = next((k for k in KERNELS if f"{k}_kernel" in line), None)
         if name is None:
             continue
         rep = out.setdefault(name, {"registers": set(), "spill_bytes": 0})
@@ -616,7 +654,456 @@ def encode_timings(torch, dev, gpu: str, enc: dict) -> tuple:
     return k, p
 
 
+def words_case(rng, B: int, L: int, bits: int):
+    """Seeded words-layout inputs: a profile plane with factors 0-7 (5 and
+    up invalid), random payload words and int16-range states."""
+    prof = (rng.integers(0, 8, size=(B, L)) << 4
+            | rng.integers(0, 16, size=(B, L))).astype(np.uint8)
+    words = rng.integers(-(2**31), 2**31, size=(B, bits, L), dtype=np.int32)
+    state = rng.integers(-(2**15), 2**15, size=(L, 2)).astype(np.int32)
+    return prof, words, state
+
+
+def check_words_kernel(torch, dev, rng) -> int:
+    """Phase 2 for the words kernel: both instantiations against the plain
+    version at the bench.py headline shape and ragged ones.  Returns the
+    max |kernel - plain|."""
+    from bjxa_tpu_torch.ops import cuda_decode_words as cdw
+
+    worst = 0
+    for B, L, bits in WORDS_SHAPES:
+        prof, words, state = (torch.from_numpy(a).to(dev)
+                              for a in words_case(rng, B, L, bits))
+        for wo in (True, False):
+            pcm, end = cdw.fused_decode_words(prof, words, state, bits=bits,
+                                              with_output=wo)
+            ppcm, pend = cdw.fused_decode_words_plain(
+                prof, words, state, bits=bits, with_output=wo)
+            torch.cuda.synchronize()
+            e = exact_err(end, pend)
+            if wo:
+                e = max(e, exact_err(pcm, ppcm))
+            elif pcm is not None:
+                raise AssertionError("states-only run returned PCM")
+            worst = max(worst, e)
+    return worst
+
+
+def write_corpus(rng, src: pathlib.Path) -> list:
+    """The bench.py corpus (bench.py:132-154), drawn from ``rng``: full
+    samples, valid random profiles.  Returns the file names."""
+    from bjxa_tpu_torch import XAFormat, dump_xa_header
+
+    n_files, channels, bits, nblocks, _batch = CORPUS
+    size = 4 * bits + 1
+    hdr = dump_xa_header(XAFormat(
+        data_len=nblocks * size * channels, samples=nblocks * 32,
+        samples_rate=44100, bits=bits, channels=channels,
+        initial_state=((0, 0), (0, 0)),
+    ).validate())
+    names = []
+    for i in range(n_files):
+        body = rng.integers(0, 256, nblocks * channels * size,
+                            dtype=np.uint8).reshape(nblocks * channels, size)
+        body[:, 0] = (body[:, 0] & 0x0F) | (
+            rng.integers(0, 5, nblocks * channels).astype(np.uint8) << 4)
+        names.append(f"f{i:04d}")
+        (src / f"f{i:04d}.xa").write_bytes(hdr + body.tobytes())
+    return names
+
+
+def corpus_main_path(torch, dev, rng, tmp: pathlib.Path) -> dict:
+    """Phase 4 for the corpus engine: the 32-file corpus through ``python -m
+    bjxa_tpu_torch corpus`` against per-file references, a rerun that skips
+    everything, the in-process run with its launches counted, and a mixed
+    directory on the card against the CPU.  Returns what phase 5 needs."""
+    from bjxa_tpu_torch import decode_corpus, xa_to_wav
+    from bjxa_tpu_torch.ops import (cuda_decode, cuda_decode_words,
+                                    cuda_encode, cuda_filter)
+
+    t_phase = time.perf_counter()
+    n_files, channels, bits, nblocks, batch = CORPUS
+    src = tmp / "corpus_xa"
+    src.mkdir()
+    names = write_corpus(rng, src)
+    res = run_cli("corpus", "--batch-files", batch, src, tmp / "corpus_wav",
+                  platform=None)
+    if res.returncode != 0 or res.stderr:
+        raise AssertionError(f"corpus CLI exit {res.returncode}"
+                             f" {res.stderr.decode()[-2000:]}")
+    want_out = f"converted {n_files} skipped 0 failed 0"
+    if not res.stdout.decode().startswith(want_out):
+        raise AssertionError(f"corpus CLI said {res.stdout!r}")
+    # references: the port's per-file decode on the CPU while it stays in
+    # budget, then the card's per-file decode (itself held against the CPU
+    # on the files before)
+    cpu_refs = card_refs = 0
+    t0 = time.perf_counter()
+    for name in names:
+        xa = (src / f"{name}.xa").read_bytes()
+        if time.perf_counter() - t0 < CORPUS_CPU_BUDGET_S:
+            want = xa_to_wav(xa, device="cpu")
+            cpu_refs += 1
+        else:
+            want = xa_to_wav(xa, device=dev)
+            card_refs += 1
+        if (tmp / "corpus_wav" / f"{name}.wav").read_bytes() != want:
+            raise AssertionError(f"corpus {name}: CLI WAV != reference")
+    cpu_s = time.perf_counter() - t0
+    if cpu_refs < 4:
+        raise AssertionError(f"only {cpu_refs} CPU references in budget")
+    again = run_cli("corpus", "--batch-files", batch, src,
+                    tmp / "corpus_wav", platform=None)
+    if again.returncode != 0 or not again.stdout.decode().startswith(
+        f"converted 0 skipped {n_files} failed 0"
+    ):
+        raise AssertionError(f"corpus rerun: {again.stdout!r}"
+                             f" {again.stderr.decode()[-2000:]}")
+    phase(4, "cli_corpus_equals_reference", files=n_files, blocks=nblocks,
+          batch_files=batch, cpu_refs=cpu_refs, card_refs=card_refs,
+          ref_s=f"{cpu_s:.3f}", rerun_skipped=n_files,
+          seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+    # the corpus path in-process, counted: one words-kernel launch a batch
+    mods = (cuda_decode, cuda_decode_words, cuda_encode, cuda_filter)
+    for mod in mods:
+        mod.LAUNCHES = 0
+    run = decode_corpus(src, tmp / "corpus_wav_inproc", device=dev,
+                        batch_files=batch)
+    launches = cuda_decode_words.LAUNCHES
+    batches = -(-n_files // batch)
+    if run.converted != n_files or run.failed or launches != batches:
+        raise AssertionError(f"in-process corpus: {run.converted} converted,"
+                             f" {run.failed}, words kernel launched"
+                             f" {launches} times for {batches} batches")
+    for name in names:
+        if ((tmp / "corpus_wav_inproc" / f"{name}.wav").read_bytes()
+                != (tmp / "corpus_wav" / f"{name}.wav").read_bytes()):
+            raise AssertionError(f"corpus {name}: in-process WAV != CLI WAV")
+    phase(4, "corpus_main_path_launches", batches=batches,
+          lanes=batch * channels, decode_words=launches,
+          decode_lanes=cuda_decode.LAUNCHES, filter_lanes=cuda_filter.LAUNCHES,
+          encode_search=cuda_encode.LAUNCHES)
+
+    # a mixed directory: the same exit code, stdout, stderr and bytes on
+    # the card and on the CPU
+    t_mixed = time.perf_counter()
+    mixed = tmp / "mixed_xa"
+    mixed.mkdir()
+    for name, (mbits, mch, mblocks, flaw) in MIXED_CORPUS.items():
+        img = synth_xa(rng, mbits, mch, mblocks * 32 - 3,
+                       bad=(mblocks // 2, mch - 1) if flaw == "bad" else None)
+        (mixed / f"{name}.xa").write_bytes(img[:-50] if flaw == "cut"
+                                           else img)
+    runs = {}
+    for plat in (None, "cpu"):
+        out = tmp / f"mixed_wav_{plat}"
+        r = run_cli("corpus", "--batch-files", 2, mixed, out, platform=plat)
+        runs[plat] = (r.returncode, r.stdout, r.stderr,
+                      {p.name: p.read_bytes() for p in out.glob("*.wav")})
+    flawed = sum(1 for v in MIXED_CORPUS.values() if v[3])
+    if runs[None] != runs["cpu"] or runs[None][0] != 1 or len(
+        runs[None][3]
+    ) != len(MIXED_CORPUS) - flawed:
+        raise AssertionError(f"mixed corpus: card {runs[None][:3]} vs CPU"
+                             f" {runs['cpu'][:3]}")
+    phase(4, "cli_corpus_mixed_equals_cpu", exit=1, files=len(MIXED_CORPUS),
+          failed=flawed, stdout=repr(runs[None][1].decode().strip()),
+          seconds=f"{time.perf_counter() - t_mixed:.3f}")
+    return {"src": src, "names": names, "launches": launches}
+
+
+def stage_encode_corpus(torch, dev, src: pathlib.Path):
+    """The encode corpus as ``encode_corpus`` stages its one batch: int16
+    ``[Bs, 32, files x channels]`` on the card, ``Bs`` the block count
+    rounded up to the bucket granularity (256)."""
+    from bjxa_tpu_torch import load_pcm, parse_riff_header
+
+    n_files, channels, frames = ENCODE_CORPUS
+    nblocks = -(-frames // 32)
+    Bs = -(-nblocks // 256) * 256
+    staged = np.zeros((Bs * 32, n_files * channels), np.int16)
+    for i in range(n_files):
+        wav = (src / f"w{i:02d}.wav").read_bytes()
+        rf = parse_riff_header(wav)
+        staged[:frames, i * channels:(i + 1) * channels] = load_pcm(
+            wav[44:44 + rf.data_len_pcm], channels)
+    return torch.from_numpy(staged.reshape(Bs, 32, -1)).to(dev)
+
+
+def check_encode_corpus_batch(torch, dev, src: pathlib.Path,
+                              out: pathlib.Path) -> tuple:
+    """The search kernel at the encode corpus's launch shape: one launch
+    over the staged batch, whose deflated blocks must be the CLI's XA
+    payloads, held against the plain search on the card over the first and
+    the last ``ENCODE_CORPUS_PLAIN_BLOCKS`` blocks (the last entered from
+    the state the kernel's own reconstruction carries there).  Returns
+    ``(staged batch, max |kernel - plain|)``."""
+    from bjxa_tpu_torch.ops import cuda_encode
+    from bjxa_tpu_torch.ops.deflate import deflate_blocks
+
+    n_files, channels, frames = ENCODE_CORPUS
+    lanes = stage_encode_corpus(torch, dev, src)
+    Bs, _, L = lanes.shape
+    zeros = torch.zeros((L, 2), dtype=torch.int32, device=dev)
+    got = cuda_encode.encode_search_lanes(lanes, zeros, bits=6)
+    blocks = deflate_blocks(got[0], got[1].transpose(1, 2), 6).cpu().numpy()
+    nblocks = -(-frames // 32)
+    for i in range(n_files):
+        payload = np.ascontiguousarray(
+            blocks[:nblocks, i * channels:(i + 1) * channels]).tobytes()
+        if (out / f"w{i:02d}.xa").read_bytes()[32:] != payload:
+            raise AssertionError(f"encode corpus w{i:02d}: XA != the batch"
+                                 " launch's blocks")
+    P = ENCODE_CORPUS_PLAIN_BLOCKS
+    worst = 0
+    for lo in (0, Bs - P):
+        entry = zeros if lo == 0 else torch.stack(
+            [got[2][lo - 1, 31], got[2][lo - 1, 30]], dim=-1).to(torch.int32)
+        want = cuda_encode.encode_search_lanes_plain(
+            lanes[lo:lo + P].contiguous(), entry.contiguous(), bits=6)
+        hi = lo + P
+        exit_state = got[3] if hi == Bs else torch.stack(
+            [got[2][hi - 1, 31], got[2][hi - 1, 30]], dim=-1).to(torch.int32)
+        for g, w in zip((got[0][lo:hi], got[1][lo:hi], got[2][lo:hi],
+                         exit_state), want):
+            worst = max(worst, exact_err(g, w))
+    return lanes, worst
+
+
+def encode_corpus_main_path(torch, dev, rng, tmp: pathlib.Path) -> dict:
+    """Phase 4 for the corpus encode: 16 stereo 10-second WAVs through
+    ``python -m bjxa_tpu_torch corpus --encode`` against the card's
+    per-file ``wav_to_xa`` and, for two of them, the CPU's; two short WAVs
+    on the card against the CPU; the in-process run with its launches
+    counted; and the kernel at the batch's shape against its plain
+    version."""
+    from bjxa_tpu_torch import encode_corpus, wav_to_xa
+    from bjxa_tpu_torch.ops import (cuda_decode, cuda_decode_words,
+                                    cuda_encode, cuda_filter)
+
+    t_phase = time.perf_counter()
+    n_files, channels, frames = ENCODE_CORPUS
+    src = tmp / "enc_wav"
+    src.mkdir()
+    for i in range(n_files):
+        (src / f"w{i:02d}.wav").write_bytes(synth_wav(rng, channels, frames))
+    res = run_cli("corpus", "--encode", src, tmp / "enc_xa", platform=None)
+    if res.returncode != 0 or res.stderr or not res.stdout.decode(
+    ).startswith(f"converted {n_files} skipped 0 failed 0"):
+        raise AssertionError(f"encode corpus CLI exit {res.returncode}"
+                             f" {res.stdout!r} {res.stderr.decode()[-2000:]}")
+    for i in range(n_files):
+        want = wav_to_xa((src / f"w{i:02d}.wav").read_bytes(), device=dev)
+        if (tmp / "enc_xa" / f"w{i:02d}.xa").read_bytes() != want:
+            raise AssertionError(f"encode corpus w{i:02d}: XA != wav_to_xa")
+    t_cpu = time.perf_counter()
+    for i in ENCODE_CORPUS_CPU_FILES:
+        want = wav_to_xa((src / f"w{i:02d}.wav").read_bytes(), device="cpu")
+        if (tmp / "enc_xa" / f"w{i:02d}.xa").read_bytes() != want:
+            raise AssertionError(f"encode corpus w{i:02d}: XA != the CPU's")
+    cpu_s = time.perf_counter() - t_cpu
+    # two short WAVs: the CLI on the card and on the CPU
+    short = tmp / "enc_short"
+    short.mkdir()
+    for i, (ch, fr) in enumerate(ENCODE_CORPUS_SHORT):
+        (short / f"s{i}.wav").write_bytes(synth_wav(rng, ch, fr))
+    outs = {}
+    for plat in (None, "cpu"):
+        r = run_cli("corpus", "--encode", short, tmp / f"enc_short_{plat}",
+                    platform=plat)
+        if r.returncode != 0 or r.stderr:
+            raise AssertionError(f"short encode corpus on {plat or 'cuda'}:"
+                                 f" {r.returncode} {r.stderr.decode()}")
+        outs[plat] = {p.name: p.read_bytes()
+                      for p in (tmp / f"enc_short_{plat}").glob("*.xa")}
+    if outs[None] != outs["cpu"] or len(outs[None]) != 2:
+        raise AssertionError("short encode corpus: card XA != CPU XA")
+    for mod in (cuda_decode, cuda_decode_words, cuda_encode, cuda_filter):
+        mod.LAUNCHES = 0
+    run = encode_corpus(src, tmp / "enc_xa_inproc", device=dev)
+    launches = cuda_encode.LAUNCHES
+    if run.converted != n_files or run.failed or launches != 1:
+        raise AssertionError(f"in-process encode corpus: {run.converted},"
+                             f" {run.failed}, {launches} launches")
+    for i in range(n_files):
+        if ((tmp / "enc_xa_inproc" / f"w{i:02d}.xa").read_bytes()
+                != (tmp / "enc_xa" / f"w{i:02d}.xa").read_bytes()):
+            raise AssertionError(f"encode corpus w{i:02d}: in-process != CLI")
+    nblocks = -(-frames // 32)
+    phase(4, "cli_corpus_encode_equals_wav_to_xa", files=n_files,
+          blocks=nblocks, lanes=n_files * channels, encode_search=launches,
+          decode_words=cuda_decode_words.LAUNCHES,
+          cpu_files=list(ENCODE_CORPUS_CPU_FILES), cpu_s=f"{cpu_s:.3f}",
+          short_equals_cpu=True,
+          seconds=f"{time.perf_counter() - t_phase:.3f}")
+    t_batch = time.perf_counter()
+    lanes, err = check_encode_corpus_batch(torch, dev, src, tmp / "enc_xa")
+    phase(4, "encode_corpus_batch_equals_plain",
+          shape=f"B={lanes.shape[0]},L={lanes.shape[2]},bits=6",
+          plain_blocks=f"{ENCODE_CORPUS_PLAIN_BLOCKS}+"
+                       f"{ENCODE_CORPUS_PLAIN_BLOCKS}",
+          xa_equals_launch=True, max_abs_err=err,
+          seconds=f"{time.perf_counter() - t_batch:.3f}")
+    return {"src": src, "launches": launches, "lanes": lanes, "err": err}
+
+
+def stage_split(runs) -> dict:
+    """Median over corpus runs of each stage's ms (``Counters.stage_ms``),
+    of the run's own elapsed ms, and of the device's busy share: the
+    event-timed upload, compute and readback over the elapsed time."""
+    keys = sorted(set().union(*(c.stage_ms for c in runs)))
+    out = {k: f"{statistics.median(c.stage_ms.get(k, 0.0) for c in runs):.3f}"
+           for k in keys}
+    out["elapsed"] = f"{statistics.median(c.elapsed() * 1e3 for c in runs):.3f}"
+    out["device_busy"] = "{:.4f}".format(statistics.median(
+        sum(c.stage_ms[k] for k in ("h2d", "compute", "d2h"))
+        / (c.elapsed() * 1e3) for c in runs))
+    return out
+
+
+def corpus_timings(torch, dev, gpu: str, corp: dict, enc: dict,
+                   tmp: pathlib.Path) -> tuple:
+    """Phase 5 for the corpus engine: the words kernel against its plain
+    version at the headline shape, against the lanes kernel on one corpus
+    batch, the packed H2D against three, the search kernel on the encode
+    corpus's batch, and ``decode_corpus`` and ``encode_corpus`` end to end
+    and by the stages they time themselves.  Returns the words kernel's
+    and its plain version's ms at the headline shape."""
+    import shutil
+
+    from bjxa_tpu_torch import decode_corpus, encode_corpus, parse_xa_header
+    from bjxa_tpu_torch.ops import cuda_decode, cuda_decode_words as cdw
+    from bjxa_tpu_torch.ops import cuda_encode
+    from bjxa_tpu_torch.ops import decode as tdecode
+    from bjxa_tpu_torch.parallel.corpus import stage_decode_batch
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 5)
+    B, L, bits = WORDS_SHAPES[0]
+    prof, words, state = (torch.from_numpy(a).to(dev)
+                          for a in words_case(rng, B, L, bits))
+    ms = {}
+    for wo in (True, False):
+        k = cuda_ms(torch, lambda: cdw.fused_decode_words(
+            prof, words, state, bits=bits, with_output=wo), inner=20)
+        p = cuda_ms(torch, lambda: cdw.fused_decode_words_plain(
+            prof, words, state, bits=bits, with_output=wo), reps=3)
+        ms[wo] = (k, p)
+        moved = B * L * (4 * bits + 1) + (B * 32 * L * 2 if wo else 0)
+        phase(5, "time_decode_words", gpu=repr(gpu),
+              shape=f"B={B},L={L},bits={bits}", with_output=wo,
+              kernel_ms=f"{k:.6f}", plain_ms=f"{p:.6f}",
+              mbytes=f"{moved / 1e6:.3f}",
+              gb_per_s=f"{moved / (k * 1e-3) / 1e9:.3f}")
+
+    # one corpus batch: the words kernel and the lanes kernel on the same
+    # staged bytes (no plain version: a Python loop of ~663 k steps here)
+    n_files, channels, cbits, nblocks, batch = CORPUS
+    src, names = corp["src"], corp["names"]
+    def headers():
+        out = []
+        for n in names:
+            with open(src / f"{n}.xa", "rb") as f:
+                out.append((src / f"{n}.xa", parse_xa_header(f.read(32))))
+        return out
+
+    fmts = headers()
+    Bs = -(-nblocks // 256) * 256
+    Lc = batch * channels
+    buf, _valid, _dead = stage_decode_batch(fmts[:batch], cbits, channels, Bs,
+                                            Lc, {}, dev)
+    nw, npr, nst = tdecode.packed_layout(Bs, Lc, cbits)
+    dbuf = buf.to(dev)
+    cwords = dbuf[:nw].reshape(Bs, cbits, Lc)
+    cprof = dbuf[nw:nw + npr].view(torch.uint8)[:Bs * Lc].reshape(Bs, Lc)
+    cstate = dbuf[nw + npr:].reshape(Lc, 2)
+    blocks_t = tdecode.words_to_blocks(cprof, cwords, bits=cbits).contiguous()
+    kw = cuda_ms(torch, lambda: cdw.fused_decode_words(
+        cprof, cwords, cstate, bits=cbits), reps=5)
+    kl = cuda_ms(torch, lambda: cuda_decode.fused_decode_lanes(
+        blocks_t, cstate, bits=cbits), reps=5)
+    got_w, end_w = cdw.fused_decode_words(cprof, cwords, cstate, bits=cbits)
+    got_l, end_l = cuda_decode.fused_decode_lanes(blocks_t, cstate,
+                                                  bits=cbits)
+    torch.cuda.synchronize()
+    exact_err(got_w, got_l)
+    exact_err(end_w, end_l)
+    phase(5, "time_words_vs_lanes_corpus_batch", gpu=repr(gpu),
+          shape=f"B={Bs},L={Lc},bits={cbits}", words_ms=f"{kw:.6f}",
+          lanes_ms=f"{kl:.6f}", lanes_over_words=f"{kl / kw:.4f}",
+          outputs_equal=True)
+
+    # one packed host->device copy against three of the same bytes
+    parts = (buf[:nw], buf[nw:nw + npr], buf[nw + npr:])
+    one = cuda_ms(torch, lambda: buf.to(dev, non_blocking=True), inner=5)
+    three = cuda_ms(torch, lambda: [t.to(dev, non_blocking=True)
+                                    for t in parts], inner=5)
+    phase(5, "time_h2d_packed_vs_three", gpu=repr(gpu),
+          mbytes=f"{buf.numel() * 4 / 1e6:.3f}", packed_ms=f"{one:.6f}",
+          three_ms=f"{three:.6f}")
+
+    # the search kernel on the encode corpus's staged batch (one launch
+    # of encode_corpus)
+    lanes = enc["lanes"]
+    zeros = torch.zeros((lanes.shape[2], 2), dtype=torch.int32, device=dev)
+    search_ms = cuda_ms(torch, lambda: cuda_encode.encode_search_lanes(
+        lanes, zeros, bits=6), reps=3)
+    phase(5, "time_encode_search_corpus_batch", gpu=repr(gpu),
+          shape=f"B={lanes.shape[0]},L={lanes.shape[2]},bits=6",
+          kernel_ms=f"{search_ms:.6f}",
+          us_per_block=f"{search_ms * 1e3 / lanes.shape[0]:.3f}")
+
+    # decode_corpus end to end after a warm pass, median of 3, and the
+    # stages it times itself
+    samples = n_files * nblocks * 32 * channels
+    runs, counted = [], []
+    for rep in range(4):
+        out = tmp / f"corpus_time_{rep}"
+        t0 = time.perf_counter()
+        res = decode_corpus(src, out, device=dev, batch_files=batch)
+        dt = time.perf_counter() - t0
+        if res.converted != n_files:
+            raise AssertionError(f"timed corpus run converted {res.converted}")
+        shutil.rmtree(out)
+        if rep:
+            runs.append(dt)
+            counted.append(res.counters)
+    e2e = statistics.median(runs)
+    phase(5, "time_decode_corpus", gpu=repr(gpu), files=n_files,
+          seconds=f"{e2e:.6f}", files_per_s=f"{n_files / e2e:.3f}",
+          msamples_per_s=f"{samples / e2e / 1e6:.3f}",
+          runs=[f"{s:.6f}" for s in runs])
+    phase(5, "decode_corpus_stages_ms", gpu=repr(gpu), **stage_split(counted))
+
+    # encode_corpus end to end after a warm pass, median of 3, and the
+    # stages it times itself
+    en_files, _ch, en_frames = ENCODE_CORPUS
+    runs, counted = [], []
+    for rep in range(4):
+        out = tmp / f"enc_time_{rep}"
+        t0 = time.perf_counter()
+        res = encode_corpus(enc["src"], out, device=dev)
+        dt = time.perf_counter() - t0
+        if res.converted != en_files:
+            raise AssertionError(f"timed encode corpus: {res.converted}")
+        shutil.rmtree(out)
+        if rep:
+            runs.append(dt)
+            counted.append(res.counters)
+    e2e = statistics.median(runs)
+    phase(5, "time_encode_corpus", gpu=repr(gpu), files=en_files,
+          seconds=f"{e2e:.6f}", files_per_s=f"{en_files / e2e:.3f}",
+          msamples_per_s=f"{en_files * en_frames * 2 / e2e / 1e6:.3f}",
+          runs=[f"{s:.6f}" for s in runs],
+          search_share=f"{search_ms / (e2e * 1e3):.4f}")
+    phase(5, "encode_corpus_stages_ms", gpu=repr(gpu), **stage_split(counted),
+          phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
+    return ms[True]
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     # ---- phase 0: environment ---------------------------------------------
@@ -646,7 +1133,7 @@ def main() -> int:
     _build.library()
     log = so.with_suffix(".log").read_text()
     report = ptxas_report(log)
-    if set(report) != {"decode_lanes", "filter_lanes", "encode_search"}:
+    if set(report) != set(KERNELS):
         raise AssertionError(f"ptxas log names kernels {sorted(report)}")
     phase(1, "build", seconds=f"{time.perf_counter() - t0:.3f}",
           fresh=fresh, library=so.name,
@@ -658,6 +1145,10 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     worst = check_kernels(torch, dev, rng)
     worst["encode_search"] = check_encode_kernel(torch, dev, rng)
+    # its own stream, so the later phases keep the inputs they had before
+    # the words kernel was added
+    worst["decode_words"] = check_words_kernel(
+        torch, dev, np.random.default_rng(SEED + 3))
     phase(2, "kernels_equal_plain", **worst)
 
     # ---- phase 3: known answers ---------------------------------------------
@@ -764,6 +1255,11 @@ def main() -> int:
     phase(4, "main_path_launches", K=K, Bc=Bp // K, lanes=K * fmt.channels,
           rounds=rounds, **launches, encode_search=cuda_encode.LAUNCHES)
     enc = encode_main_path(torch, dev, rng)
+    ctmp_dir = tempfile.TemporaryDirectory(prefix="bjxa_smoke_corpus_")
+    ctmp = pathlib.Path(ctmp_dir.name)
+    corp = corpus_main_path(torch, dev, rng, ctmp)
+    enc_corp = encode_corpus_main_path(torch, dev, rng, ctmp)
+    worst["encode_search"] = max(worst["encode_search"], enc_corp["err"])
 
     # ---- phase 5: timings on the card ---------------------------------------
     ms = {}
@@ -845,6 +1341,8 @@ def main() -> int:
           **{k: f"{statistics.median(v):.3f}" for k, v in stages.items()})
 
     enc_ms = encode_timings(torch, dev, gpu, enc)
+    words_ms = corpus_timings(torch, dev, gpu, corp, enc_corp, ctmp)
+    ctmp_dir.cleanup()
 
     summary = {"kernels": [
         {"name": "decode_lanes", "route": "cuda",
@@ -867,7 +1365,14 @@ def main() -> int:
          "launches": enc["launches"],
          "max_abs_err": worst["encode_search"],
          "ms": enc_ms[0], "plain_ms": enc_ms[1]},
+        {"name": "decode_words", "route": "cuda",
+         "source": "bjxa_tpu_torch/csrc/decode_words.cu",
+         "replaces": "bjxa_tpu/ops/pallas_decode.py:149",
+         "launches": corp["launches"],
+         "max_abs_err": worst["decode_words"],
+         "ms": words_ms[0], "plain_ms": words_ms[1]},
     ]}
+    phase(5, "total", seconds=f"{time.perf_counter() - t_start:.3f}")
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

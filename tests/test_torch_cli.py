@@ -19,7 +19,12 @@ import pytest
 import torch
 
 from bjxa_tpu import cli as jcli
-from bjxa_tpu_torch import XAFormat, dump_xa_header, parse_xa_header
+from bjxa_tpu_torch import (
+    XAFormat,
+    dump_riff_header,
+    dump_xa_header,
+    parse_xa_header,
+)
 from bjxa_tpu_torch import cli as tcli
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -138,7 +143,9 @@ def test_usage_paths_match(cpu_platform, args):
     usage = tout.decode() if args == ["help"] else terr
     assert "decode [<xa file> [<wav file>]]" in usage
     assert "encode [--bits <4|6|8>] [--truncate]" in usage
-    assert "corpus" not in usage and "abi" not in usage
+    assert ("corpus [--batch-files <n>] [--depth <k>] [--manifest <path>]"
+            in usage)
+    assert "abi" not in usage and "--devices" not in usage
 
 
 @pytest.mark.parametrize("flag", ["--streaming", "--devices",
@@ -147,6 +154,134 @@ def test_unported_decode_flags_fail(cpu_platform, flag):
     code, out, err = run_cli(tcli.main, ["decode", flag, "2", "x.xa"])
     assert code == 1 and out == b""
     assert err.startswith(f"bjxa: {flag} is not yet ported\n")
+
+
+@pytest.mark.parametrize("flag", ["--devices", "--coordinator",
+                                  "--num-processes", "--process-id"])
+def test_unported_corpus_flags_fail(cpu_platform, tmp_path, flag):
+    code, out, err = run_cli(tcli.main, ["corpus", flag, "1", str(tmp_path),
+                                         str(tmp_path / "out")])
+    assert code == 1 and out == b""
+    assert err.startswith(f"bjxa: {flag} is not yet ported\n")
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("var", ["BJXA_DEVICES", "BJXA_COORDINATOR",
+                                 "BJXA_NUM_PROCESSES", "BJXA_PROCESS_ID"])
+def test_unported_corpus_env_fails(cpu_platform, monkeypatch, tmp_path, var):
+    monkeypatch.setenv(var, "1")
+    code, out, err = run_cli(tcli.main, ["corpus", str(tmp_path),
+                                         str(tmp_path / "out")])
+    assert code == 1 and out == b""
+    assert err.startswith(f"bjxa: {var} is not yet ported\n")
+
+
+@pytest.fixture
+def corpus_dir(tmp_path):
+    """A small mixed XA directory: bits x channels, an invalid-profile
+    file, a truncated file and a non-XA file."""
+    src = tmp_path / "src"
+    src.mkdir()
+    specs = [(4, 1, 30), (6, 2, 41), (8, 2, 17), (6, 1, 64), (6, 2, 35)]
+    for i, (bits, ch, blocks) in enumerate(specs):
+        (src / f"f{i}.xa").write_bytes(make_xa(bits, ch, blocks, seed=20 + i))
+    (src / "bad.xa").write_bytes(make_xa(6, 2, 40, seed=30, bad_block=9))
+    (src / "cut.xa").write_bytes(make_xa(8, 1, 50, seed=31)[:-30])
+    (src / "junk.xa").write_bytes(b"nope")
+    return src
+
+
+def corpus_both(monkeypatch, tmp_path, args, src):
+    """``corpus <args> src out`` through both CLIs; the JAX one on one
+    device (the test harness gives it 8 virtual CPU devices otherwise).
+    Returns both (code, stdout, stderr) and both output directories."""
+    outs = (tmp_path / "t_out", tmp_path / "j_out")
+    got = run_cli(tcli.main, ["corpus", *args, str(src), str(outs[0])])
+    monkeypatch.setenv("BJXA_DEVICES", "1")
+    try:
+        want = run_cli(jcli.main, ["corpus", *args, str(src), str(outs[1])])
+    finally:
+        monkeypatch.delenv("BJXA_DEVICES")
+    return got, want, outs
+
+
+def _files(d, pattern):
+    return {p.name: p.read_bytes() for p in sorted(d.glob(pattern))}
+
+
+@pytest.mark.parametrize("args", [[], ["--batch-files", "2", "--depth", "1"]],
+                         ids=["default", "small_batches"])
+def test_corpus_decode_matches(cpu_platform, monkeypatch, tmp_path,
+                               corpus_dir, args):
+    got, want, (t_out, j_out) = corpus_both(monkeypatch, tmp_path, args,
+                                            corpus_dir)
+    assert got == want
+    code, out, err = got
+    assert code == 1 and out.startswith(b"converted 5 skipped 0 failed 3 ")
+    assert err.count("corpus: ") == 3
+    assert _files(t_out, "*.wav") == _files(j_out, "*.wav")
+    assert len(_files(t_out, "*.wav")) == 5
+    # a rerun skips what converted and retries the failures
+    again = run_cli(tcli.main, ["corpus", *args, str(corpus_dir), str(t_out)])
+    assert again[0] == 1 and again[1].startswith(
+        b"converted 0 skipped 5 failed 3 "
+    )
+
+
+@pytest.mark.parametrize("args", [["--encode"],
+                                  ["--encode", "--bits", "4", "--truncate"],
+                                  ["--encode", "--bits", "8"]],
+                         ids=["search6", "truncate4", "search8"])
+def test_corpus_encode_matches(cpu_platform, monkeypatch, tmp_path, args):
+    src = tmp_path / "wav"
+    src.mkdir()
+    rng = np.random.default_rng(5)
+    for i, (ch, frames) in enumerate([(1, 500), (2, 321), (2, 40)]):
+        pcm = rng.integers(-20000, 20000, size=(frames, ch)).astype("<i2")
+        (src / f"w{i}.wav").write_bytes(
+            dump_riff_header(pcm.size * 2, 44100, ch) + pcm.tobytes()
+        )
+    (src / "junk.wav").write_bytes(b"RIFF")
+    got, want, (t_out, j_out) = corpus_both(monkeypatch, tmp_path, args, src)
+    assert got == want
+    assert got[0] == 1 and got[1].startswith(b"converted 3 skipped 0 failed 1")
+    assert _files(t_out, "*.xa") == _files(j_out, "*.xa")
+    assert len(_files(t_out, "*.xa")) == 3
+
+
+@pytest.mark.parametrize("args", [
+    ["--batch-files", "0", "a", "b"], ["--batch-files"], ["--depth", "x"],
+    ["--manifest"], ["--bits", "5", "--encode"], ["--bits", "6", "a", "b"],
+    ["--truncate", "a", "b"], ["--trace"], ["--frobnicate"], ["a"],
+    ["a", "b", "c"], ["missing_dir", "out"],
+], ids=lambda a: "_".join(a) or "none")
+def test_corpus_option_failures_match(cpu_platform, monkeypatch, tmp_path,
+                                      args):
+    monkeypatch.chdir(tmp_path)
+    got = run_cli(tcli.main, ["corpus", *args])
+    monkeypatch.setenv("BJXA_DEVICES", "1")
+    want = run_cli(jcli.main, ["corpus", *args])
+    assert got[0] == want[0] == 1
+    assert got[1] == want[1] == b""
+    assert got[2].split("\n")[0] == want[2].split("\n")[0]
+
+
+def test_corpus_trace_and_stats(cpu_platform, tmp_path, corpus_dir):
+    from bjxa_tpu_torch.utils.profiler import TRACE_FILE
+
+    trace = tmp_path / "trace"
+    code, out, _err = run_cli(tcli.main, [
+        "corpus", "--stats", "--trace", str(trace), str(corpus_dir),
+        str(tmp_path / "out"),
+    ])
+    assert code == 1
+    lines = out.decode().splitlines()
+    assert lines[0].startswith("converted 5 skipped 0 failed 3 samples ")
+    assert lines[1].startswith("stats files_per_s ")
+    assert lines[1].split()[1::2] == ["files_per_s", "msamples_per_s",
+                                      "mb_in_per_s", "mb_out_per_s",
+                                      "elapsed_s"]
+    assert (trace / TRACE_FILE).stat().st_size > 0
 
 
 def test_no_cuda_refuses_to_run(monkeypatch):
@@ -163,6 +298,18 @@ def test_no_cuda_refuses_to_run(monkeypatch):
     monkeypatch.setenv("BJXA_PLATFORM", "tpu")  # anything but cpu: the card
     code, _out, err = run_cli(tcli.main, ["decode", "-", "-"])
     assert code == 1 and err.startswith("bjxa: CUDA is not available")
+
+
+def test_corpus_no_cuda_refuses_to_run(monkeypatch, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    monkeypatch.delenv("BJXA_PLATFORM", raising=False)
+    code, out, err = run_cli(tcli.main, ["corpus", str(tmp_path),
+                                         str(tmp_path / "out")])
+    assert code == 1 and out == b""
+    assert err == ("bjxa: CUDA is not available; set BJXA_PLATFORM=cpu to"
+                   " convert on the CPU\n")
+    assert not (tmp_path / "out").exists()
 
 
 def test_module_entry_point_loads_no_jax(tmp_path):

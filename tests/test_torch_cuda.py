@@ -1,6 +1,6 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and
-the whole-file decode and encode on the card against the CPU.  Exact
-comparison.
+the whole-file decode and encode and the corpus engine on the card against
+the CPU.  Exact comparison.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  This file imports no JAX, so it also runs on a machine that has only
@@ -20,8 +20,14 @@ from bjxa_tpu_torch import (
     parse_xa_header,
     wav_to_xa,
 )
-from bjxa_tpu_torch.ops import cuda_decode, cuda_encode, cuda_filter
-from bjxa_tpu_torch.ops.decode import decode_bytes
+from bjxa_tpu_torch.ops import (
+    cuda_decode,
+    cuda_decode_words,
+    cuda_encode,
+    cuda_filter,
+)
+from bjxa_tpu_torch.ops.decode import decode_bytes, words_from_blocks_host
+from bjxa_tpu_torch.parallel.corpus import decode_corpus, encode_corpus
 from bjxa_tpu_torch.ops.filter import profile_gains
 
 pytestmark = pytest.mark.cuda
@@ -209,3 +215,92 @@ def test_wav_to_xa_card_matches_cpu(dev, bits, channels):
         assert wav_to_xa(wav, bits, search=False, device=dev) == wav_to_xa(
             wav, bits, search=False, device="cpu"
         )
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("B,L", [(40, 1000), (3, 129), (300, 3)])
+def test_words_kernel_matches_plain(dev, bits, B, L):
+    blocks_t, state = _lanes(bits, B, L, seed=bits * 7 + L, dev="cpu")
+    prof, words = words_from_blocks_host(blocks_t.numpy(), bits)
+    prof = torch.from_numpy(prof).to(dev)
+    words = torch.from_numpy(words).to(dev)
+    state = state.to(dev)
+    for wo in (True, False):
+        before = cuda_decode_words.LAUNCHES
+        pcm, end = cuda_decode_words.fused_decode_words(
+            prof, words, state, bits=bits, with_output=wo
+        )
+        assert cuda_decode_words.LAUNCHES == before + 1
+        ppcm, pend = cuda_decode_words.fused_decode_words_plain(
+            prof, words, state, bits=bits, with_output=wo
+        )
+        torch.cuda.synchronize()
+        assert torch.equal(end, pend)
+        assert (pcm is None) == (not wo)
+        if wo:
+            assert torch.equal(pcm, ppcm)
+
+
+def test_words_wrapper_rejects_bad_inputs(dev):
+    prof = torch.zeros((2, 8), dtype=torch.uint8, device=dev)
+    words = torch.zeros((2, 6, 8), dtype=torch.int32, device=dev)
+    state = torch.zeros((8, 2), dtype=torch.int32, device=dev)
+    bad = [
+        (prof.int(), words, state, 6, TypeError),
+        (prof, words.long(), state, 6, TypeError),
+        (prof, words, state.long(), 6, TypeError),
+        (prof, words, state, 4, ValueError),
+        (prof, words, state, 5, ValueError),
+        (prof[:1], words, state, 6, ValueError),
+        (prof, words, state[:4], 6, ValueError),
+        (prof, words, state.cpu(), 6, ValueError),
+        (prof, words.transpose(0, 2).contiguous().transpose(0, 2), state, 6,
+         ValueError),
+    ]
+    for p, w, st, bits, exc in bad:
+        with pytest.raises(exc):
+            cuda_decode_words.fused_decode_words(p, w, st, bits=bits)
+
+
+def test_decode_corpus_card_matches_cpu(dev, tmp_path):
+    src = tmp_path / "src"
+    src.mkdir()
+    for i, (bits, ch, blocks) in enumerate(
+        [(4, 1, 300), (6, 2, 290), (6, 2, 257), (8, 2, 40), (8, 1, 999)]
+    ):
+        (src / f"f{i}.xa").write_bytes(_xa(bits, ch, blocks, seed=i))
+    bad = bytearray(_xa(6, 2, 100, seed=9))
+    bad[32 + 7 * 50] = 0xF0
+    (src / "bad.xa").write_bytes(bytes(bad))
+    (src / "cut.xa").write_bytes(_xa(4, 2, 80, seed=10)[:-20])
+    before = cuda_decode_words.LAUNCHES
+    card = decode_corpus(src, tmp_path / "card", device=dev, batch_files=2,
+                         bucket_granularity=16)
+    assert cuda_decode_words.LAUNCHES > before
+    cpu = decode_corpus(src, tmp_path / "cpu", device="cpu", batch_files=2,
+                        bucket_granularity=16)
+    assert (card.converted, card.failed) == (cpu.converted, cpu.failed)
+    assert card.converted == 5 and len(card.failed) == 2
+    for p in sorted((tmp_path / "cpu").glob("*.wav")):
+        assert (tmp_path / "card" / p.name).read_bytes() == p.read_bytes()
+
+
+def test_encode_corpus_card_matches_cpu(dev, tmp_path):
+    src = tmp_path / "src"
+    src.mkdir()
+    for i, (ch, frames) in enumerate([(1, 3000), (2, 2500), (2, 99)]):
+        (src / f"w{i}.wav").write_bytes(_wav(ch, frames, seed=i))
+    for search in (True, False):
+        before = cuda_encode.LAUNCHES
+        card = encode_corpus(src, tmp_path / f"card{search}", device=dev,
+                             search=search, batch_files=2,
+                             bucket_granularity=16)
+        assert (cuda_encode.LAUNCHES > before) == search
+        cpu = encode_corpus(src, tmp_path / f"cpu{search}", device="cpu",
+                            search=search, batch_files=2,
+                            bucket_granularity=16)
+        assert card.converted == cpu.converted == 3
+        for p in sorted((tmp_path / f"cpu{search}").glob("*.xa")):
+            assert (tmp_path / f"card{search}" / p.name).read_bytes() == (
+                p.read_bytes()
+            )
