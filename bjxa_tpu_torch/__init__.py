@@ -3,11 +3,14 @@ hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of :mod:`bjxa_tpu` (the JAX/Pallas engine, kept as the reference).
 This package holds the whole-file XA -> WAVE decode path, the
-WAVE -> XA profile-search encode path and the batched corpus engine:
-header parsing and validation with the same typed errno-style errors, the
-chunk-parallel exact fixed-point decoder and search encoder, batch decode
-and encode over files x channels lanes, and a ``bjxa``-compatible
-``decode``/``encode``/``corpus`` CLI.  It imports no JAX.
+WAVE -> XA profile-search encode path, their segmented bounded-memory
+twins, the batched corpus engine and the measurement scripts
+(:mod:`bjxa_tpu_torch.bench`, :mod:`bjxa_tpu_torch.benchmarks`,
+:mod:`bjxa_tpu_torch.tools`): header parsing and validation with the same
+typed errno-style errors, the chunk-parallel exact fixed-point decoder and
+search encoder, batch decode and encode over files x channels lanes, and a
+``bjxa``-compatible ``decode``/``encode``/``corpus`` CLI.  It imports no
+JAX.
 """
 
 __version__ = "0.5.0"
@@ -34,7 +37,14 @@ from bjxa_tpu_torch.format import (
     dump_pcm,
     load_pcm,
 )
-from bjxa_tpu_torch.api import decode_xa, xa_to_wav, encode_pcm, wav_to_xa
+from bjxa_tpu_torch.api import (
+    decode_xa,
+    xa_to_wav,
+    encode_pcm,
+    wav_to_xa,
+    decode_xa_stream,
+    encode_wav_stream,
+)
 from bjxa_tpu_torch.parallel.corpus import decode_corpus, encode_corpus
 
 __all__ = [
@@ -61,6 +71,8 @@ __all__ = [
     "xa_to_wav",
     "encode_pcm",
     "wav_to_xa",
+    "decode_xa_stream",
+    "encode_wav_stream",
     "decode_corpus",
     "encode_corpus",
 ]

@@ -3,7 +3,9 @@
 The whole-file equivalents of the reference CLI drivers
 (``src/bjxa_decode.c``/``src/bjxa_encode.c`` in their ``BJXA_SINGLE_PASS``
 mode): bytes in, bytes out, with header work on the host and sample work on
-the device the caller names.
+the device the caller names.  :func:`decode_xa_stream` and
+:func:`encode_wav_stream` are their bounded-memory twins between binary
+streams, for files of any size.
 """
 
 from __future__ import annotations
@@ -24,8 +26,11 @@ from bjxa_tpu_torch.format import (
     dump_pcm,
     load_pcm,
 )
-from bjxa_tpu_torch.ops.decode import decode_bytes
-from bjxa_tpu_torch.ops.encode import encode_stream_blocks
+from bjxa_tpu_torch.ops.decode import decode_bytes, iter_decode_segments
+from bjxa_tpu_torch.ops.encode import (
+    encode_stream_blocks,
+    iter_encode_segments,
+)
 
 
 def decode_xa(
@@ -97,6 +102,80 @@ def encode_pcm(
         initial_state=((0, 0), (0, 0)),
     ).validate()
     return dump_xa_header(fmt) + payload
+
+
+def decode_xa_stream(
+    fin,
+    fout,
+    fmt: XAFormat | None = None,
+    *,
+    device: torch.device | str,
+    segment_blocks: int | None = None,
+) -> XAFormat:
+    """Segmented bounded-memory XA->WAV conversion between binary streams,
+    decoding on ``device``.
+
+    Reads the XA header from ``fin`` (unless a pre-parsed ``fmt`` is given,
+    in which case ``fin`` must be positioned at the payload), writes the
+    RIFF header and PCM to ``fout`` segment by segment at O(segment) host
+    memory: the stream twin of :func:`xa_to_wav` for u32-scale files
+    (reference anchor: the streaming loop of ``src/bjxa_decode.c:102-161``).
+    Shared by the CLI's segmented path and the corpus engine's oversized
+    files.
+
+    Raises :class:`~bjxa_tpu_torch.errors.BjxaProtocolError` /
+    :class:`EOFError` after writing a failing stream's valid prefix.
+    """
+    if fmt is None:
+        fmt = parse_xa_header(fin.read(XA_HEADER_SIZE))
+    fout.write(
+        dump_riff_header(fmt.data_len_pcm, fmt.samples_rate, fmt.channels)
+    )
+    kw = {} if segment_blocks is None else {"segment_blocks": segment_blocks}
+    for pcm in iter_decode_segments(fin.read, fmt, device=device, **kw):
+        fout.write(dump_pcm(pcm))
+    return fmt
+
+
+def encode_wav_stream(
+    fin,
+    fout,
+    bits: int = 6,
+    *,
+    search: bool = True,
+    rf=None,
+    device: torch.device | str,
+    segment_blocks: int | None = None,
+) -> XAFormat:
+    """Segmented bounded-memory WAV->XA conversion between binary streams,
+    encoding on ``device``.
+
+    Reads the RIFF header from ``fin`` (unless a pre-parsed ``rf`` is
+    given, with ``fin`` at the PCM body), writes the XA header and packed
+    blocks to ``fout`` segment by segment, carrying the exact search state:
+    bytes identical to :func:`wav_to_xa` at O(segment) memory (reference
+    anchor: ``src/bjxa_encode.c:108-160``).  Returns the :class:`XAFormat`
+    written.  Raises :class:`EOFError` after writing a truncated stream's
+    whole-block prefix.
+    """
+    if rf is None:
+        rf = parse_riff_header(fin.read(RIFF_HEADER_SIZE))
+    nblocks = -(-rf.samples // BLOCK_SAMPLES)
+    fmt = XAFormat(
+        data_len=nblocks * (bits * 4 + 1) * rf.channels,
+        samples=rf.samples,
+        samples_rate=rf.samples_rate,
+        bits=bits,
+        channels=rf.channels,
+        initial_state=((0, 0), (0, 0)),
+    ).validate()
+    fout.write(dump_xa_header(fmt))
+    for blocks in iter_encode_segments(
+        fin.read, rf.channels, rf.samples, bits=bits, search=search,
+        device=device, segment_blocks=segment_blocks,
+    ):
+        fout.write(blocks)
+    return fmt
 
 
 def wav_to_xa(

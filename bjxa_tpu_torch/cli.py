@@ -43,16 +43,23 @@ Available actions:
   help
     Show this message and exit.
 
-  decode [<xa file> [<wav file>]]
+  decode [--segment-blocks <n>] [<xa file> [<wav file>]]
     Read an XA file and convert it into a WAV file.
+    --segment-blocks streams the file through the device
+    in n-block segments (bounded memory, automatic above
+    256 MB; override with BJXA_SEGMENT_THRESHOLD).
     Decodes on the CUDA device; BJXA_PLATFORM=cpu
     decodes on the CPU instead.
 
-  encode [--bits <4|6|8>] [--truncate] [<wav file> [<xa file>]]
+  encode [--bits <4|6|8>] [--truncate] [--segment-blocks <n>]
+         [<wav file> [<xa file>]]
     Read a WAV file and convert it into an XA file.
     The default number of bits per sample, when left
     unspecified is 6. --truncate disables the filter
     profile search (reference-compatible output).
+    --segment-blocks streams the file through the device
+    in n-block segments (bounded memory, automatic above
+    256 MB of PCM).
     Encodes on the CUDA device; BJXA_PLATFORM=cpu
     encodes on the CPU instead.
 
@@ -73,9 +80,9 @@ Available actions:
 """
 
 #: Decode options of :mod:`bjxa_tpu.cli` that this tool does not have yet.
-NOT_PORTED = ("--streaming", "--devices", "--segment-blocks")
+NOT_PORTED = ("--streaming", "--devices")
 #: Encode options of :mod:`bjxa_tpu.cli` that this tool does not have yet.
-ENCODE_NOT_PORTED = ("--devices", "--segment-blocks")
+ENCODE_NOT_PORTED = ("--devices",)
 #: Corpus options of :mod:`bjxa_tpu.cli` that this tool does not have yet
 #: (multi-device and multi-process runs), and their environment variables.
 CORPUS_NOT_PORTED = ("--devices", "--coordinator", "--num-processes",
@@ -152,8 +159,17 @@ def _select_device(action: str):
 
 
 def _cmd_decode(args: list[str], prog: str) -> int:
-    if args and args[0] in NOT_PORTED:
-        return _fail(prog, f"{args[0]} is not yet ported")
+    segment_blocks = None
+    while args and args[0].startswith("--"):
+        if args[0] == "--segment-blocks":
+            if len(args) < 2 or not args[1].isdigit() or int(args[1]) < 1:
+                return _fail(prog, "Invalid --segment-blocks")
+            segment_blocks = int(args[1])
+            args = args[2:]
+        elif args[0] in NOT_PORTED:
+            return _fail(prog, f"{args[0]} is not yet ported")
+        else:
+            break
     if len(args) > 2:
         return _fail(prog, "Too many arguments")
     device, why = _select_device("decode")
@@ -161,11 +177,12 @@ def _cmd_decode(args: list[str], prog: str) -> int:
         sys.stderr.write(f"bjxa: {why}\n")
         return 1
     return _run_on_files(
-        args, lambda fin, fout: _decode_stream(fin, fout, device)
+        args,
+        lambda fin, fout: _decode_stream(fin, fout, device, segment_blocks),
     )
 
 
-def _decode_stream(fin, fout, device) -> int:
+def _decode_stream(fin, fout, device, segment_blocks=None) -> int:
     header = fin.read(XA_HEADER_SIZE)
     if header is None or len(header) < XA_HEADER_SIZE:
         sys.stderr.write("bjxa_fread_header: Input/output error\n")
@@ -176,14 +193,26 @@ def _decode_stream(fin, fout, device) -> int:
         _perror("bjxa_fread_header", e)
         return 1
 
+    from bjxa_tpu_torch.ops.decode import (
+        SEGMENT_BLOCKS,
+        decode_bytes,
+        segment_threshold,
+    )
+
+    if (
+        segment_blocks
+        or fmt.data_len + fmt.data_len_pcm > segment_threshold()
+    ):
+        return _decode_segmented(
+            fin, fout, fmt, segment_blocks or SEGMENT_BLOCKS, device
+        )
+
     fout.write(
         dump_riff_header(fmt.data_len_pcm, fmt.samples_rate, fmt.channels)
     )
     payload = fin.read(fmt.data_len)
     if payload is None or len(payload) < fmt.data_len:
         return _decode_truncated(fout, payload or b"", fmt, device)
-
-    from bjxa_tpu_torch.ops.decode import decode_bytes
 
     try:
         pcm = decode_bytes(payload, fmt, device=device)
@@ -196,6 +225,26 @@ def _decode_stream(fin, fout, device) -> int:
         _perror("bjxa_decode", e)
         return 1
     fout.write(dump_pcm(pcm))
+    return 0
+
+
+def _decode_segmented(fin, fout, fmt, segment_blocks: int, device) -> int:
+    """Bounded-memory decode loop (``api.decode_xa_stream``): segments
+    stream through the device and land on disk as they finish; error
+    labels match the one-shot paths (the reference's block loop emits the
+    valid prefix before failing, ``src/bjxa_decode.c:122-152``)."""
+    from bjxa_tpu_torch.api import decode_xa_stream
+
+    try:
+        decode_xa_stream(
+            fin, fout, fmt, device=device, segment_blocks=segment_blocks
+        )
+    except EOFError:
+        sys.stderr.write("fread: End of file\n")
+        return 1
+    except BjxaProtocolError as e:
+        _perror("bjxa_decode", e)
+        return 1
     return 0
 
 
@@ -255,6 +304,7 @@ def _decode_valid_prefix(payload, fmt, device):
 def _cmd_encode(args: list[str], prog: str) -> int:
     bits = 6
     search = True
+    segment_blocks = None
     while args and args[0].startswith("--"):
         if args[0] == "--bits":
             args = args[1:]
@@ -270,6 +320,11 @@ def _cmd_encode(args: list[str], prog: str) -> int:
         elif args[0] == "--truncate":
             search = False
             args = args[1:]
+        elif args[0] == "--segment-blocks":
+            if len(args) < 2 or not args[1].isdigit() or int(args[1]) < 1:
+                return _fail(prog, "Invalid --segment-blocks")
+            segment_blocks = int(args[1])
+            args = args[2:]
         elif args[0] in ENCODE_NOT_PORTED:
             return _fail(prog, f"{args[0]} is not yet ported")
         else:
@@ -281,11 +336,14 @@ def _cmd_encode(args: list[str], prog: str) -> int:
         sys.stderr.write(f"bjxa: {why}\n")
         return 1
     return _run_on_files(
-        args, lambda fin, fout: _encode_stream(fin, fout, bits, search, device)
+        args,
+        lambda fin, fout: _encode_stream(fin, fout, bits, search, device,
+                                         segment_blocks),
     )
 
 
-def _encode_stream(fin, fout, bits: int, search: bool, device) -> int:
+def _encode_stream(fin, fout, bits: int, search: bool, device,
+                   segment_blocks=None) -> int:
     header = fin.read(RIFF_HEADER_SIZE)
     if header is None or len(header) < RIFF_HEADER_SIZE:
         sys.stderr.write("bjxa_fread_riff_header: Input/output error\n")
@@ -295,6 +353,14 @@ def _encode_stream(fin, fout, bits: int, search: bool, device) -> int:
     except BjxaError as e:
         _perror("bjxa_fread_riff_header", e)
         return 1
+
+    from bjxa_tpu_torch.ops.decode import SEGMENT_BLOCKS, segment_threshold
+
+    if segment_blocks or rf.data_len_pcm > segment_threshold():
+        return _encode_segmented(
+            fin, fout, rf, bits, search, segment_blocks or SEGMENT_BLOCKS,
+            device,
+        )
 
     body = fin.read(rf.data_len_pcm)
     if body is None or len(body) < rf.data_len_pcm:
@@ -311,6 +377,26 @@ def _encode_stream(fin, fout, bits: int, search: bool, device) -> int:
         _perror("bjxa_encode", e)
         return 1
     fout.write(xa)
+    return 0
+
+
+def _encode_segmented(fin, fout, rf, bits: int, search: bool,
+                      segment_blocks: int, device) -> int:
+    """Bounded-memory encode loop (``api.encode_wav_stream``): segments of
+    PCM stream through the device with the search state carried exactly,
+    bit-identical to the one-shot encoder (the streaming reference loop
+    writes the header before reading blocks,
+    ``src/bjxa_encode.c:108-160``)."""
+    from bjxa_tpu_torch.api import encode_wav_stream
+
+    try:
+        encode_wav_stream(
+            fin, fout, bits, search=search, rf=rf, device=device,
+            segment_blocks=segment_blocks,
+        )
+    except EOFError:
+        sys.stderr.write("fread: End of file\n")
+        return 1
     return 0
 
 

@@ -32,7 +32,9 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: every pointer and the stream is a void*, every int an int.
+_LL = ctypes.c_longlong
+# C entry points: every pointer and the stream is a void*, every int an int
+# (an element count a long long).
 SIGNATURES = {
     # blocks_t, state, pcm, end, B, L, bits, with_output, device, stream
     "bjxa_decode_lanes": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -43,6 +45,13 @@ SIGNATURES = {
     "bjxa_filter_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # pcm, state, profiles, coded, recon, end, B, L, bits, device, stream
     "bjxa_encode_search": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # first (blocks_t | prof), words, state, out, end, B, L, load, store,
+    # device, stream
+    "bjxa_decode_variant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # prof, words, state, out, end, B, L, bits, device, stream
+    "bjxa_loadstore_bound": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, out, n, elem_bytes, mix, device, stream
+    "bjxa_alu_mix": (_P, _P, _LL, _I, _I, _I, _P),
 }
 
 

@@ -17,7 +17,9 @@ whole-file pipelines share the lane-vectorized filter:
   (:mod:`bjxa_tpu_torch.ops.cuda_decode`).
 
 Hosts call :func:`decode_bytes`, which picks a pipeline, checks profile
-validity (EPROTO taxonomy) and trims the padded tail.
+validity (EPROTO taxonomy) and trims the padded tail; or
+:func:`iter_decode_segments`, which streams a file of any size through the
+same pipelines in fixed-size block segments at O(segment) host memory.
 
 The batch decoders (:func:`decode_batch_lanes`, :func:`decode_batch_words`,
 :func:`decode_batch_packed`) run many independent streams at once, one lane
@@ -446,27 +448,17 @@ def pick_chunks(Bp: int, channels: int) -> int:
     return num_chunks
 
 
-def decode_bytes_validity(
-    payload: bytes | memoryview,
-    fmt: XAFormat,
-    *,
-    device: torch.device | str,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Decode one XA payload on ``device`` without raising on invalid
-    profiles.
+def _decode_payload(payload, fmt: XAFormat, state: torch.Tensor,
+                    device: torch.device):
+    """Decode ``fmt.blocks`` blocks of ``payload`` on ``device`` from the
+    entry ``state`` (``int32[C, 2]``, on ``device``).
 
-    The shared core of :func:`decode_bytes` and the CLI's valid-prefix
-    error path.  Streams of more than 64 blocks take the chunk-parallel
-    fixed point over a bucketed block count (:func:`pad_bucket`; dummy
-    profile-0 blocks pad the tail and are trimmed); shorter ones, and any
-    whose chunk count falls to 1, decode sequentially and unpadded.
-
-    Returns ``(frames int16[>=samples, C], valid bool[B, C])`` on
-    ``device`` — frames past the first invalid block are garbage (the
-    reference stops there; callers slice the valid prefix).
+    Streams of more than 64 blocks take the chunk-parallel fixed point over
+    a bucketed block count (:func:`pad_bucket`; dummy profile-0 blocks pad
+    the tail); shorter ones, and any whose chunk count falls to 1, decode
+    sequentially and unpadded.  Returns ``(frames int16[>=blocks*32, C],
+    valid bool[>=blocks, C])`` on ``device``.
     """
-    device = torch.device(device)
-    state = torch.from_numpy(fmt.initial_state_array()).to(device)
     B = fmt.blocks
     Bp = B if B <= 64 else pad_bucket(B)
     num_chunks = pick_chunks(Bp, fmt.channels)
@@ -485,7 +477,29 @@ def decode_bytes_validity(
         frames, _end, valid = decode_arrays(
             torch.from_numpy(blocks).to(device), state, bits=fmt.bits
         )
-    return frames, valid[:B]
+    return frames, valid
+
+
+def decode_bytes_validity(
+    payload: bytes | memoryview,
+    fmt: XAFormat,
+    *,
+    device: torch.device | str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode one XA payload on ``device`` without raising on invalid
+    profiles.
+
+    The shared core of :func:`decode_bytes` and the CLI's valid-prefix
+    error path (:func:`_decode_payload` from the header's state).
+
+    Returns ``(frames int16[>=samples, C], valid bool[B, C])`` on
+    ``device`` — frames past the first invalid block are garbage (the
+    reference stops there; callers slice the valid prefix).
+    """
+    device = torch.device(device)
+    state = torch.from_numpy(fmt.initial_state_array()).to(device)
+    frames, valid = _decode_payload(payload, fmt, state, device)
+    return frames, valid[: fmt.blocks]
 
 
 def decode_bytes(
@@ -507,12 +521,14 @@ def decode_bytes(
     return frames[: fmt.samples].cpu().numpy()
 
 
-#: Byte budget (payload + PCM) above which :mod:`bjxa_tpu` switches a file
-#: to its segmented bounded-memory pipelines; override with
-#: ``BJXA_SEGMENT_THRESHOLD``.  The port has no segmented pipeline yet: the
-#: corpus engine sends such files through the whole-file path instead
-#: (same bytes).
+#: Byte budget (payload + PCM) above which whole-file decode and encode
+#: switch to the segmented bounded-memory pipelines; override with
+#: ``BJXA_SEGMENT_THRESHOLD``.  The format allows u32 sizes; the reference
+#: streams with O(block) memory.
 SEGMENT_THRESHOLD = 256 << 20
+#: Effective blocks per segment (65536 is ~3.3 MB of XA and ~16.8 MB of PCM
+#: at 6-bit stereo).
+SEGMENT_BLOCKS = 65536
 
 
 def segment_threshold() -> int:
@@ -524,3 +540,121 @@ def segment_threshold() -> int:
         return int(env)
     except ValueError:
         raise BjxaInvalidState(f"Invalid BJXA_SEGMENT_THRESHOLD {env!r}")
+
+
+def iter_decode_segments(
+    read,
+    fmt: XAFormat,
+    *,
+    device: torch.device | str,
+    segment_blocks: int = SEGMENT_BLOCKS,
+):
+    """Bounded-memory decode on ``device``: stream a file through it in
+    fixed-size block segments, carrying the exact predictor end state
+    between segments.
+
+    Sequential segments need no boundary fixed point: each segment's entry
+    state is the true decoded state (the last two samples of the previous
+    segment), so the chunk fixed point runs inside the segment as usual and
+    the yielded PCM is bit-identical to the one-shot path.  Peak host memory
+    is O(segment) whatever the header's u32-scale ``data_len`` says: the
+    device-rate analog of the reference's O(block) streaming loop
+    (``src/bjxa_decode.c:102-161``).
+
+    Args:
+      read: ``read(nbytes) -> bytes`` pulling from the stream (a short
+        result means the stream is truncated).
+      segment_blocks: effective blocks per segment.
+
+    Yields interleaved ``int16[n, channels]`` numpy frames per segment.
+    Raises :class:`BjxaProtocolError` after yielding a failing segment's
+    valid prefix, or :class:`EOFError` after yielding a truncated stream's
+    decoded prefix (callers emit the reference's stderr labels).
+
+    Segments pipeline: a segment's PCM goes back to the host as a
+    non-blocking copy into pinned memory behind a CUDA event
+    (:mod:`bjxa_tpu_torch.ops.readback`) while the next segment is read,
+    staged and decoded, and is waited for only just before it is yielded --
+    one extra segment of host memory.  The carried state stays on the
+    device.
+    """
+    import dataclasses
+
+    from bjxa_tpu_torch.ops.readback import finish_readback, start_readback
+
+    device = torch.device(device)
+    C = fmt.channels
+    state = torch.from_numpy(fmt.initial_state_array()).to(device)
+    left_blocks = fmt.blocks
+    done_blocks = 0
+    pending = None  # previous segment: (host tensor, its event)
+
+    def flush():
+        nonlocal pending
+        if pending is None:
+            return None
+        out = finish_readback(*pending)
+        pending = None
+        return out if out.size else None
+
+    while left_blocks > 0:
+        nblk = min(segment_blocks, left_blocks)
+        payload = read(nblk * fmt.block_size_xa) or b""
+        avail = len(payload) // fmt.block_size_xa
+        truncated = avail < nblk
+        use = avail if truncated else nblk
+        if use == 0:
+            out = flush()
+            if out is not None:
+                yield out
+            raise EOFError("truncated XA stream")
+
+        # validity from the profile plane, on the host (no device round
+        # trip): block-major, channel-minor like the stream layout
+        raw = np.frombuffer(
+            payload, np.uint8, count=use * fmt.block_size_xa
+        ).reshape(use, C, fmt.block_size)
+        vb = (raw[:, :, 0] >> 4) < 5  # [use, C]
+        allv = vb.all(axis=1)
+        good = int(np.argmin(allv)) if not allv.all() else use
+        limit = min(use * BLOCK_SAMPLES,
+                    fmt.samples - done_blocks * BLOCK_SAMPLES)
+        n_frames = min(good * BLOCK_SAMPLES, limit)
+
+        sub = dataclasses.replace(
+            fmt,
+            data_len=use * fmt.block_size_xa,
+            samples=use * BLOCK_SAMPLES,
+        )
+        frames, _valid = _decode_payload(
+            memoryview(payload)[: sub.data_len], sub, state, device
+        )
+        # The carried state comes from the frames, after the last REAL
+        # block: the pad blocks of a bucketed segment drag the decoder's own
+        # end state away from it.  A slice on the device, no host sync.
+        state = _end_from_frames(frames, use)
+        readback = start_readback(frames[:n_frames])
+
+        out = flush()  # the previous segment lands while this one decoded
+        if out is not None:
+            yield out
+        pending = readback
+        if good < use:
+            out = flush()
+            if out is not None:
+                yield out
+            idx = int(np.argmin(vb.reshape(-1)))
+            raise BjxaProtocolError(
+                f"invalid block profile factor in block "
+                f"{done_blocks + idx // C} channel {idx % C}"
+            )
+        if truncated:
+            out = flush()
+            if out is not None:
+                yield out
+            raise EOFError("truncated XA stream")
+        left_blocks -= use
+        done_blocks += use
+    out = flush()
+    if out is not None:
+        yield out

@@ -18,8 +18,9 @@ the search only ``channels`` lanes.  :func:`encode_search_fixpoint` lifts
 that to ``K * channels`` lanes with the decoder's boundary-state fixed
 point, bit-identical to the sequential search; :func:`pick_encode_chunks`
 chooses K.  :func:`encode_stream_blocks` is what the whole-file entry
-points call; :func:`encode_batch_blocks` is the corpus engine's batch of
-many streams.  Every function works on the device of the tensors it is
+points call; :func:`iter_encode_segments` streams a file of any size
+through the same encoders in fixed-size block segments;
+:func:`encode_batch_blocks` is the corpus engine's batch of many streams.  Every function works on the device of the tensors it is
 given.
 """
 
@@ -242,3 +243,92 @@ def encode_batch_blocks(pcm: torch.Tensor, *, bits: int,
     else:
         profiles, coded = encode_truncate(pcm)
     return deflate_blocks(profiles, coded.transpose(1, 2), bits).reshape(-1)
+
+
+def iter_encode_segments(
+    read,
+    channels: int,
+    samples: int,
+    *,
+    bits: int,
+    search: bool,
+    device: torch.device | str,
+    segment_blocks: int | None = None,
+):
+    """Bounded-memory encode on ``device``: stream PCM through it in
+    fixed-size block segments, carrying the exact predictor/search state
+    between segments.
+
+    The profile search is greedy per block, so segmenting cannot change any
+    choice: segment k+1 starts from the exact carried end state and the
+    emitted bytes are bit-identical to the one-shot encoder at O(segment)
+    peak memory -- the encode mirror of
+    :func:`bjxa_tpu_torch.ops.decode.iter_decode_segments` (reference
+    anchor: the streaming encode loop ``src/bjxa_encode.c:108-160`` with
+    O(block) memory).
+
+    Args:
+      read: ``read(nbytes) -> bytes`` pulling little-endian int16
+        interleaved PCM (a short result means the stream is truncated).
+      samples: frames per channel the container header promises.
+
+    Yields packed XA block bytes per segment.  On a truncated stream,
+    yields the whole blocks that arrived (matching the streaming encoder's
+    behavior), then raises :class:`EOFError`.
+    """
+    from bjxa_tpu_torch.ops.decode import SEGMENT_BLOCKS, pad_bucket
+    from bjxa_tpu_torch.ops.tables import BLOCK_SAMPLES
+
+    if segment_blocks is None:
+        segment_blocks = SEGMENT_BLOCKS
+    device = torch.device(device)
+    frame_bytes = 2 * channels
+    state = torch.zeros((channels, 2), dtype=torch.int32, device=device)
+    left = samples
+    while left > 0:
+        want_frames = min(segment_blocks * BLOCK_SAMPLES, left)
+        body = read(want_frames * frame_bytes) or b""
+        got = len(body) // frame_bytes
+        truncated = got < want_frames
+        if truncated:
+            nblocks = got // BLOCK_SAMPLES  # whole blocks only mid-stream
+            frames_used = nblocks * BLOCK_SAMPLES
+        else:
+            nblocks = -(-want_frames // BLOCK_SAMPLES)
+            frames_used = want_frames
+        if nblocks:
+            # full segments share one shape; the tail buckets
+            Bp = min(segment_blocks, pad_bucket(nblocks))
+            arr = np.zeros((Bp * BLOCK_SAMPLES, channels), np.int16)
+            arr[:frames_used] = np.frombuffer(
+                body, "<i2", count=frames_used * channels
+            ).reshape(-1, channels)
+            lanes = torch.from_numpy(
+                arr.reshape(Bp, BLOCK_SAMPLES, channels)
+            ).to(device)
+            if search:
+                Kc = pick_encode_chunks(Bp, channels)
+                if Kc > 1:
+                    # chunk-parallel exact fixed point per segment: the
+                    # search runs at Kc*channels lanes, bit-identical
+                    profiles, coded, recon, _end, _r = encode_search_fixpoint(
+                        lanes, state, bits=bits, num_chunks=Kc
+                    )
+                else:
+                    profiles, coded, recon, _end = encode_search(
+                        lanes, state, bits=bits
+                    )
+                # carried state = after the last REAL block of this segment
+                # (the bucket's pad blocks would corrupt the search's own
+                # end state)
+                state = torch.stack(
+                    [recon[nblocks - 1, -1, :], recon[nblocks - 1, -2, :]],
+                    dim=-1,
+                ).to(torch.int32)
+            else:
+                profiles, coded = encode_truncate(lanes)
+            blocks = deflate_blocks(profiles, coded.transpose(1, 2), bits)
+            yield blocks[:nblocks].cpu().numpy().tobytes()
+        if truncated:
+            raise EOFError("truncated PCM stream")
+        left -= want_frames

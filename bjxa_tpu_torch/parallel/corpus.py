@@ -24,10 +24,11 @@ scales the reference's one-file-at-a-time CLI to directories of files:
 Output bytes, failure messages, manifest names, counters and the
 ``.wav.tmp``/``.xa.tmp`` renames are those of :mod:`bjxa_tpu`.  Not ported
 yet: ``mesh=`` sharding and the ``jax.distributed`` process lookup
-(``process_index``/``process_count`` are explicit arguments), and the
-segmented bounded-memory pipelines: a file above
-:func:`~bjxa_tpu_torch.ops.decode.segment_threshold` converts through the
-whole-file path instead, with the same bytes and the same failures.
+(``process_index``/``process_count`` are explicit arguments).  A file above
+:func:`~bjxa_tpu_torch.ops.decode.segment_threshold` never enters the
+batcher: it streams through the segmented bounded-memory pipelines
+(:func:`~bjxa_tpu_torch.api.decode_xa_stream`,
+:func:`~bjxa_tpu_torch.api.encode_wav_stream`), one file at a time.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from bjxa_tpu_torch.api import encode_pcm
+from bjxa_tpu_torch.api import decode_xa_stream, encode_wav_stream
 from bjxa_tpu_torch.errors import BjxaError
 from bjxa_tpu_torch.format import (
     BLOCK_SAMPLES,
@@ -54,14 +55,13 @@ from bjxa_tpu_torch.format import (
     parse_xa_header,
 )
 from bjxa_tpu_torch.ops.decode import (
-    check_valid,
     decode_batch_packed,
-    decode_bytes,
     packed_layout,
     pad_bucket as _bucket,
     segment_threshold,
 )
 from bjxa_tpu_torch.ops.encode import encode_batch_blocks
+from bjxa_tpu_torch.ops.readback import finish_readback, mark, start_readback
 from bjxa_tpu_torch.utils.profiler import Counters
 from bjxa_tpu_torch.utils.progress import Manifest
 
@@ -162,29 +162,6 @@ def _host_buffer(shape, dtype, device: torch.device) -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda")
 
 
-def _start_readback(t: torch.Tensor):
-    """Begin the device->host copy of ``t`` now, without blocking.
-
-    Returns ``(host, event)``: a pinned host tensor the copy lands in and
-    the CUDA event that fires once it has; ``(t, None)`` for a CPU tensor.
-    """
-    if t.device.type == "cpu":
-        return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    return host, _mark(t.device)
-
-
-def _mark(device: torch.device):
-    """A timing CUDA event recorded now on ``device``'s current stream;
-    ``None`` for the CPU."""
-    if device.type != "cuda":
-        return None
-    event = torch.cuda.Event(enable_timing=True)
-    event.record(torch.cuda.current_stream(device))
-    return event
-
-
 def _add_device_ms(counters: Counters, marks) -> None:
     """Add the device time between consecutive fired events ``marks``
     (before the upload, after it, after the compute, after the readback)
@@ -193,22 +170,6 @@ def _add_device_ms(counters: Counters, marks) -> None:
         return
     for stage, a, b in zip(("h2d", "compute", "d2h"), marks, marks[1:]):
         counters.add_ms(stage, a.elapsed_time(b))
-
-
-def _finish_readback(host: torch.Tensor, landed) -> np.ndarray:
-    """Wait for a copy begun by :func:`_start_readback` and return its
-    bytes as a numpy array the writer thread may own.
-
-    A non-blocking copy into pinned memory that is read before its event
-    has fired gives stale bytes and no error, hence the wait.  The result
-    is a pageable copy: freeing a pinned block records CUDA events, so
-    pinned buffers are released here, on the thread that issued the
-    copies, and the writer thread makes no CUDA calls.
-    """
-    if landed is None:
-        return host.numpy()
-    landed.synchronize()
-    return host.numpy().copy()
 
 
 @dataclasses.dataclass
@@ -284,30 +245,6 @@ def stage_decode_batch(chunk, bits: int, channels: int, blocks: int,
     return buf_t, valid, dead
 
 
-def _decode_file_whole(path, fmt: XAFormat, device) -> bytes:
-    """One oversized XA file to a WAV image through the whole-file decode.
-
-    Stands in for :mod:`bjxa_tpu`'s segmented decode until the port has
-    it: the same bytes, and the same failure for a file that shrank since
-    its header was parsed (an invalid profile among the complete blocks
-    that did arrive comes first, then "truncated XA stream").
-    """
-    with open(path, "rb") as f:
-        f.seek(XA_HEADER_SIZE)
-        payload = f.read(fmt.data_len)
-    if len(payload) < fmt.data_len:
-        avail = len(payload) // fmt.block_size_xa
-        raw = np.frombuffer(
-            payload, np.uint8, count=avail * fmt.block_size_xa
-        ).reshape(avail, fmt.channels, fmt.block_size)
-        check_valid(torch.from_numpy((raw[:, :, 0] >> 4) < 5), fmt.channels)
-        raise EOFError("truncated XA stream")
-    pcm = decode_bytes(payload, fmt, device=device)
-    return dump_riff_header(
-        fmt.data_len_pcm, fmt.samples_rate, fmt.channels
-    ) + dump_pcm(pcm)
-
-
 def decode_corpus(
     inputs,
     out_dir: str | pathlib.Path,
@@ -369,14 +306,15 @@ def decode_corpus(
                    _bucket(fmt.blocks, bucket_granularity))
             groups.setdefault(key, []).append((path, fmt))
 
-    # ---- oversized files: whole-file decode, one at a time --------------
+    # ---- oversized files: segmented bounded-memory decode ---------------
     for path, fmt in huge:
         out_path = out_dir / (path.stem + ".wav")
         tmp = out_path.with_suffix(".wav.tmp")
         try:
-            with counters.span("whole_file"):
-                wav = _decode_file_whole(path, fmt, device)
-                tmp.write_bytes(wav)
+            with counters.span("segmented"):
+                with open(path, "rb") as fin, open(tmp, "wb") as fout:
+                    fin.seek(XA_HEADER_SIZE)
+                    decode_xa_stream(fin, fout, fmt, device=device)
                 tmp.replace(out_path)
         except (BjxaError, EOFError, OSError) as e:
             failed[str(path)] = str(e)
@@ -403,12 +341,12 @@ def decode_corpus(
             )
         # one host->device copy, one kernel launch, one readback
         with counters.span("launch"):
-            marks = [_mark(device)]
+            marks = [mark(device)]
             dbuf = buf.to(device, non_blocking=True)
-            marks.append(_mark(device))
+            marks.append(mark(device))
             pcm = decode_batch_packed(dbuf, bits=bits, blocks=Bs, lanes=L)
-            marks.append(_mark(device))
-            readback = _start_readback(pcm)
+            marks.append(mark(device))
+            readback = start_readback(pcm)
         return channels, Bs, chunk, dead, buf, readback, marks, valid
 
     def write_batch(channels, nblocks, chunk, dead, pcm, valid):
@@ -450,7 +388,7 @@ def decode_corpus(
         channels, nblocks, chunk, dead, _buf, readback, marks, valid = pending
         lanes_total = len(chunk) * channels
         with counters.span("readback"):
-            pcm = _finish_readback(*readback)  # flat int16
+            pcm = finish_readback(*readback)  # flat int16
         _add_device_ms(counters, marks + [readback[1]])
         pcm = pcm.reshape(nblocks, BLOCK_SAMPLES, -1)[:, :, :lanes_total]
         # WAV serialization + disk writes run on the writer thread so the
@@ -469,24 +407,6 @@ def decode_corpus(
         skipped=skipped,
         failed=failed,
         counters=counters.freeze(),
-    )
-
-
-def _encode_file_whole(path, rf, bits: int, search: bool, device) -> bytes:
-    """One oversized WAV file to an XA image through the whole-file encode.
-
-    Stands in for :mod:`bjxa_tpu`'s segmented encode until the port has
-    it: the same bytes, and the same failure ("truncated PCM stream") for
-    a file that shrank since its header was parsed.
-    """
-    with open(path, "rb") as f:
-        f.seek(RIFF_HEADER_SIZE)
-        body = f.read(rf.data_len_pcm)
-    if len(body) < rf.data_len_pcm:
-        raise EOFError("truncated PCM stream")
-    return encode_pcm(
-        load_pcm(body, rf.channels), rf.samples_rate, bits, search=search,
-        device=device,
     )
 
 
@@ -554,14 +474,18 @@ def encode_corpus(
             key = (rf.channels, _bucket(nblocks, bucket_granularity))
             groups.setdefault(key, []).append((path, rf))
 
-    # ---- oversized WAVs: whole-file encode, one at a time ---------------
+    # ---- oversized WAVs: segmented bounded-memory encode ----------------
+    # (The search carries sequential state: segments bound the memory, not
+    # the time.)
     for path, rf in huge:
         out_path = out_dir / (path.stem + ".xa")
         tmp = out_path.with_suffix(".xa.tmp")
         try:
-            with counters.span("whole_file"):
-                xa = _encode_file_whole(path, rf, bits, search, device)
-                tmp.write_bytes(xa)
+            with counters.span("segmented"):
+                with open(path, "rb") as fin, open(tmp, "wb") as fout:
+                    fin.seek(RIFF_HEADER_SIZE)
+                    fmt = encode_wav_stream(fin, fout, bits, search=search,
+                                            rf=rf, device=device)
                 tmp.replace(out_path)
         except (BjxaError, EOFError, OSError) as e:
             failed[str(path)] = str(e)
@@ -570,10 +494,10 @@ def encode_corpus(
         manifest.record(str(path), out=str(out_path), samples=rf.samples)
         converted += 1
         counters.files += 1
-        counters.blocks += -(-rf.samples // BLOCK_SAMPLES)
+        counters.blocks += fmt.blocks
         counters.samples += rf.samples * rf.channels
         counters.bytes_in += rf.data_len_pcm
-        counters.bytes_out += len(xa)
+        counters.bytes_out += fmt.data_len + XA_HEADER_SIZE
 
     def _read_pcm(path, rf):
         with open(path, "rb") as f:
@@ -607,12 +531,12 @@ def encode_corpus(
         # one upload, one search (or truncation) over the whole batch, one
         # readback of the flat blocks
         with counters.span("launch"):
-            marks = [_mark(device)]
+            marks = [mark(device)]
             dlanes = lanes.to(device, non_blocking=True)
-            marks.append(_mark(device))
+            marks.append(mark(device))
             blocks = encode_batch_blocks(dlanes, bits=bits, search=search)
-            marks.append(_mark(device))
-            readback = _start_readback(blocks)
+            marks.append(mark(device))
+            readback = start_readback(blocks)
         return channels, L, chunk, dead, lanes, readback, marks
 
     def write_batch(channels, chunk, dead, blocks):
@@ -656,7 +580,7 @@ def encode_corpus(
     def flush(pending):
         channels, L, chunk, dead, _lanes, readback, marks = pending
         with counters.span("readback"):
-            blocks = _finish_readback(*readback)
+            blocks = finish_readback(*readback)
         _add_device_ms(counters, marks + [readback[1]])
         blocks = blocks.reshape(-1, L, bits * 4 + 1)
         with counters.span("queue"):

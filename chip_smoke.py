@@ -17,29 +17,42 @@ Phases, one line each (any failure raises and exits nonzero):
    encoder's ranking-contract vectors, and an encode -> decode round trip
    that gives back the search's own reconstruction;
 4. the main paths through the CLI (``python -m bjxa_tpu_torch decode``,
-   ``encode`` and ``corpus [--encode]``) on seeded synthetic streams, a
+   ``encode`` and ``corpus [--encode]``, and ``decode``/``encode
+   --segment-blocks``) on seeded synthetic streams, a
    5-minute stereo file and a 32-file corpus at full size among them,
    byte-compared with the port's plain path on the CPU (or, where the CPU
    would take too long, the card's per-file path, which the CPU checks on a
-   few files); the launch counters show the in-process decode, encode and
+   few files, and for the 5-minute encode the card's own bytes, whose first
+   100 s the CPU checks); the launch counters show the in-process decode, encode and
    corpus runs went through every kernel of their path, and the encode's
    fixed point took as many rounds on the card as on the CPU; the encode
    corpus's one search launch gives the CLI's XA bytes and equals the plain
-   search on the card over the first and last blocks of its batch;
+   search on the card over the first and last blocks of its batch; the
+   segmented path gives the whole-file bytes, decodes a file above the
+   256 MB threshold at a smaller peak RSS than the whole-file path, and
+   fails like the CPU on an invalid profile and a truncated body; the
+   measurement scripts run in-process with their launches counted;
 5. timings on the card (CUDA events, median of repeats after warm-up), the
    per-stage split of each main path, the encoder's sequential search
    against its fixed point, the words kernel against the lanes kernel and
    the search kernel alone on a corpus batch, and the corpus engine end to
-   end, split by the stages it times itself (``Counters.stage_ms``).
+   end, split by the stages it times itself (``Counters.stage_ms``); the
+   measurement kernels against their plain versions and their bounds; and
+   ``python -m bjxa_tpu_torch.bench`` and the bound, variant and probe
+   scripts as child processes, their JSON lines echoed.
 
-The line before the last is the kernel summary as JSON; the last line is
+The line before the last is the kernel summary as JSON (each kernel's time
+beside its plain version's and the least time the card could take for the
+same bytes or operations); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, the script fails before any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import pathlib
@@ -94,13 +107,17 @@ ENCODE_SHAPES = ((101, 8192), (3, 37), (64, 1), (1, 2))
 # 52.9 MB of PCM (whole-file fixed point, K = 4096, 8192 lanes).
 ENCODE_STREAMS = {
     "stereo6_5min": (6, 2, 44100 * 300, []),
-    "mono4_60s": (4, 1, 44100 * 60, ["--bits", "4"]),
-    "mono8_60s": (8, 1, 44100 * 60, ["--bits", "8"]),
+    "mono4_10s": (4, 1, 44100 * 10, ["--bits", "4"]),
+    "mono8_10s": (8, 1, 44100 * 10, ["--bits", "8"]),
     "stereo8_23blocks": (8, 2, 23 * 32 - 7, ["--bits", "8"]),  # sequential
     "stereo6_20s_truncate": (6, 2, 44100 * 20, ["--truncate"]),
 }
+# Blocks of a WAV's head that the CPU encodes as the reference where the
+# stream is longer (100 s of stereo: the plain search takes minutes on the
+# 5-minute stream).
+CPU_ENCODE_BLOCKS = 137813
 # The mid-size stream: sequential search against the fixed point on the card.
-MID_STREAM = (6, 2, 44100 * 60)
+MID_STREAM = (6, 2, 44100 * 20)
 # A WAV whose body stops mid-frame, mid-block: (bits, channels, frames, kept
 # body bytes).
 CUT_WAV = (6, 2, 44100 * 20, 1234567)
@@ -115,7 +132,7 @@ WORDS_SHAPES = ((64, 32768, 8), (7, 8191, 4), (7, 8191, 6), (300, 3, 4),
 CORPUS = (32, 2, 8, 20672, 16)  # files, channels, bits, blocks, batch files
 # Seconds of CPU reference decodes after which the rest of the corpus is
 # compared with the card's per-file decode instead.
-CORPUS_CPU_BUDGET_S = 60.0
+CORPUS_CPU_BUDGET_S = 20.0
 # A small mixed directory, card against CPU: name -> (bits, channels,
 # blocks, flaw), flaw "bad" (an invalid profile) or "cut" (truncated).
 MIXED_CORPUS = {
@@ -129,10 +146,10 @@ MIXED_CORPUS = {
 # with the CPU.
 ENCODE_CORPUS = (16, 2, 441000)  # files, channels, frames
 ENCODE_CORPUS_SHORT = ((2, 3000), (1, 4100))  # (channels, frames)
-# Files of the encode corpus also encoded on the CPU (lanes 0-1 and 30-31
-# of its batch), and the blocks at each end of the batch that the plain
-# search re-runs on the card against the batch's own kernel launch.
-ENCODE_CORPUS_CPU_FILES = (0, 15)
+# The file of the encode corpus also encoded on the CPU (lanes 30-31 of its
+# batch), and the blocks at each end of the batch that the plain search
+# re-runs on the card against the batch's own kernel launch.
+ENCODE_CORPUS_CPU_FILES = (15,)
 ENCODE_CORPUS_PLAIN_BLOCKS = 128
 
 # Stereo int16 saturation vector (tests/test_golden_decode.py): the left
@@ -144,8 +161,35 @@ SATURATION_XA = (
 SATURATION_WAV_SHA1 = "56ba3f62bf27ac9fd19cd97bcda06b4db327e612"
 
 
+# Measurement-kernel checks, (B, L): the benchmark scripts' shape first
+# (8-bit, 64 blocks x 32,768 lanes), then ragged ones.
+VARIANT_SHAPES = ((64, 32768), (7, 8191), (300, 3))
+# The segmented path: the CLI's default segment, and the file above the
+# 256 MB threshold (benchmarks/segmented.py's size: 6-bit stereo, ~105 MB of
+# XA and 268 MB of PCM).
+SEGMENT_BLOCKS = 65536
+BIG_BLOCKS = 2 * 1024 * 1024
+
+# The card's peaks for the bounds.  Memory: the H100 SXM's published 3.35
+# TB/s.  Integer operations: half of its published 67 TFLOP/s float32 rate,
+# 33.5 T a second: that figure counts a fused multiply-add as two, so it is
+# one instruction per lane per clock, which no mix of integer instructions
+# can exceed either.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12 / 2
+# Integer instructions the arithmetic needs, a multiply-add counted as one.
+# Decode, per sample: unpack 2 (shift, mask), sign extension 1, range shift
+# 1, a multiply and a multiply-add 2, the truncating divide 4, the sum 1,
+# the clamp 2; the filter kernel gets its samples unpacked.  Search, per
+# candidate-sample: the 15 integer operations its source counts (its 2
+# float operations are left out, which keeps the bound a lower one).
+DECODE_OPS_PER_SAMPLE = 13
+FILTER_OPS_PER_SAMPLE = 10
+ENCODE_OPS_PER_CANDIDATE_SAMPLE = 15
+
 #: The kernels of the port, by the name of their ``csrc`` source.
-KERNELS = ("decode_lanes", "filter_lanes", "encode_search", "decode_words")
+KERNELS = ("decode_lanes", "filter_lanes", "encode_search", "decode_words",
+           "decode_variants", "loadstore_bound", "alu_mix")
 
 
 def sha1(data: bytes) -> str:
@@ -225,20 +269,69 @@ def synth_wav(rng, channels: int, frames: int) -> bytes:
     return dump_riff_header(pcm.size * 2, 44100, channels) + pcm.tobytes()
 
 
-def run_cli(*args, platform: str | None):
-    """``python -m bjxa_tpu_torch <args>`` in a child process."""
+def child_env(platform: str | None, **extra) -> dict:
+    """The environment of a child process: the repository on the path, the
+    CPU only when asked, none of the variables that change a route."""
     env = dict(os.environ)
-    env.pop("BJXA_PLATFORM", None)
-    env.pop("BJXA_ENCODE_FIXPOINT_CHUNKS", None)
+    for name in ("BJXA_PLATFORM", "BJXA_ENCODE_FIXPOINT_CHUNKS",
+                 "BJXA_SEGMENT_THRESHOLD"):
+        env.pop(name, None)
     if platform:
         env["BJXA_PLATFORM"] = platform
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p]
     )
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def wav_head(wav: bytes, channels: int, frames: int) -> bytes:
+    """The first ``frames`` frames of a canonical WAVE image, as a WAVE
+    image of their own."""
+    from bjxa_tpu_torch import dump_riff_header
+
+    size = frames * channels * 2
+    return dump_riff_header(size, 44100, channels) + wav[44:44 + size]
+
+
+def run_cli(*args, platform: str | None):
+    """``python -m bjxa_tpu_torch <args>`` in a child process."""
     return subprocess.run(
         [sys.executable, "-m", "bjxa_tpu_torch", *map(str, args)],
-        cwd=ROOT, env=env, capture_output=True, timeout=600,
+        cwd=ROOT, env=child_env(platform), capture_output=True, timeout=600,
     )
+
+
+def run_cli_rss(*args, **env):
+    """``python -m bjxa_tpu_torch <args>`` in a child process whose peak
+    resident set is sampled from outside while it runs.  Returns ``(exit
+    code, stderr, peak RSS in MB)``."""
+    from bjxa_tpu_torch.benchmarks._common import PeakRss
+
+    child = subprocess.Popen(
+        [sys.executable, "-m", "bjxa_tpu_torch", *map(str, args)], cwd=ROOT,
+        env=child_env(None, **env), stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    with PeakRss(child.pid) as rss:
+        _out, err = child.communicate(timeout=600)
+    return child.returncode, err, rss.peak_mb
+
+
+def file_sha1(path) -> str:
+    h = hashlib.sha1()
+    with open(path, "rb") as f:
+        for piece in iter(lambda: f.read(1 << 24), b""):
+            h.update(piece)
+    return h.hexdigest()
+
+
+def bound(bytes_moved: int, int_ops: int) -> tuple:
+    """The least time the card could take, in ms, and what sets it: the
+    bytes over the memory rate or the operations over the integer rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = int_ops / INT_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def exact_err(a, b) -> int:
@@ -431,7 +524,8 @@ def encode_known_answers(torch, dev, rng) -> None:
 
 def encode_main_path(torch, dev, rng) -> dict:
     """Phase 4 for the encoder: the CLI on the card against the port's
-    plain path on the CPU, with the fixed point's rounds equal on both; a
+    plain path on the CPU (over the head of the 5-minute stream, over all
+    of the others), with the fixed point's rounds equal on both; a
     cut WAV; the fixed point against the sequential search; and the main
     path in-process with its launches counted.  Returns what phase 5 and
     the summary need."""
@@ -439,36 +533,65 @@ def encode_main_path(torch, dev, rng) -> dict:
     from bjxa_tpu_torch.ops import cuda_decode, cuda_encode, cuda_filter
     from bjxa_tpu_torch.ops.encode import pick_encode_chunks
 
-    wavs, refs, cpu_rounds = {}, {}, {}
+    wavs, refs, rounds = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="bjxa_smoke_enc_") as tmp:
         tmp = pathlib.Path(tmp)
         for name, (bits, channels, frames, flags) in ENCODE_STREAMS.items():
-            wavs[name] = synth_wav(rng, channels, frames)
-            (tmp / f"{name}.wav").write_bytes(wavs[name])
+            wav = wavs[name] = synth_wav(rng, channels, frames)
+            (tmp / f"{name}.wav").write_bytes(wav)
             search = "--truncate" not in flags
+            # the CPU's reference: the whole stream, or the head of a longer
+            # one (the search is causal, so the head of a stream encodes to
+            # the head of its blocks)
+            head = frames > 32 * CPU_ENCODE_BLOCKS
+            cpu_wav = wav_head(wav, channels, 32 * CPU_ENCODE_BLOCKS) if head \
+                else wav
             t0 = time.perf_counter()
-            refs[name], cpu_rounds[name] = encode_counted(
-                torch, wavs[name], bits, search, "cpu")
+            cpu_xa, cpu_rounds = encode_counted(torch, cpu_wav, bits, search,
+                                                "cpu")
             cpu_s = time.perf_counter() - t0
-            card, card_rounds = encode_counted(torch, wavs[name], bits,
-                                               search, dev)
-            if card != refs[name] or card_rounds != cpu_rounds[name]:
+            card, card_rounds = encode_counted(torch, cpu_wav, bits, search,
+                                               dev)
+            if card != cpu_xa or card_rounds != cpu_rounds:
                 raise AssertionError(
                     f"{name}: card took {card_rounds} rounds, the CPU"
-                    f" {cpu_rounds[name]}; XA equal: {card == refs[name]}")
+                    f" {cpu_rounds}; XA equal: {card == cpu_xa}")
+            if head:
+                refs[name], rounds[name] = encode_counted(torch, wav, bits,
+                                                          search, dev)
+                if refs[name][32:len(cpu_xa)] != cpu_xa[32:]:
+                    raise AssertionError(f"{name}: the head of the card's XA"
+                                         " != the CPU's XA of the head")
+            else:
+                refs[name], rounds[name] = cpu_xa, cpu_rounds
             res = run_cli("encode", *flags, tmp / f"{name}.wav",
                           tmp / f"{name}.xa", platform=None)
             if res.returncode != 0 or res.stderr:
                 raise AssertionError(f"{name}: CLI exit {res.returncode}"
                                      f" {res.stderr.decode()[-2000:]}")
             if (tmp / f"{name}.xa").read_bytes() != refs[name]:
-                raise AssertionError(f"{name}: card XA != CPU XA")
+                raise AssertionError(f"{name}: CLI XA != reference XA")
             blocks = parse_xa_header(refs[name]).blocks
             phase(4, "cli_xa_equals_cpu", stream=name, blocks=blocks,
                   K=pick_encode_chunks(blocks, channels) if search else 1,
-                  rounds_card=card_rounds, rounds_cpu=cpu_rounds[name],
+                  rounds=rounds[name], cpu_blocks=parse_xa_header(cpu_xa).blocks,
+                  rounds_card=card_rounds, rounds_cpu=cpu_rounds,
                   xa_bytes=len(refs[name]), sha1=sha1(refs[name])[:12],
                   cpu_plain_s=f"{cpu_s:.3f}")
+
+        # the 5-minute WAV in 65,536-block segments: the whole-file bytes
+        t0 = time.perf_counter()
+        res = run_cli("encode", "--segment-blocks", SEGMENT_BLOCKS,
+                      tmp / "stereo6_5min.wav", tmp / "seg.xa", platform=None)
+        if res.returncode != 0 or res.stderr:
+            raise AssertionError(f"segmented encode: exit {res.returncode}"
+                                 f" {res.stderr.decode()[-2000:]}")
+        if (tmp / "seg.xa").read_bytes() != refs["stereo6_5min"]:
+            raise AssertionError("segmented XA != whole-file XA")
+        phase(4, "cli_segmented_xa_equals_whole_file", stream="stereo6_5min",
+              segment_blocks=SEGMENT_BLOCKS,
+              xa_bytes=len(refs["stereo6_5min"]),
+              seconds=f"{time.perf_counter() - t0:.3f}")
 
         # a body cut mid-frame: exit 1, the reference's label and the same
         # prefix (header + whole blocks) on the card as on the CPU
@@ -508,7 +631,7 @@ def encode_main_path(torch, dev, rng) -> dict:
         raise AssertionError("mid-size stream: fixed point and sequential"
                              " search bytes differ")
     nblocks = parse_xa_header(mid_fix).blocks
-    phase(4, "fixpoint_equals_sequential", stream="stereo6_60s",
+    phase(4, "fixpoint_equals_sequential", stream="stereo6_20s",
           blocks=nblocks, K=pick_encode_chunks(nblocks, channels),
           rounds=mid_rounds, sequential_bytes_equal=True)
 
@@ -525,18 +648,18 @@ def encode_main_path(torch, dev, rng) -> dict:
         "stereo8_23blocks"
     ]:
         raise AssertionError("in-process card XA != CPU XA")
-    rounds = cpu_rounds["stereo6_5min"]
-    if big_launches != rounds:
+    big_rounds = rounds["stereo6_5min"]
+    if big_launches != big_rounds:
         raise AssertionError(f"encode kernel launched {big_launches} times,"
-                             f" want rounds = {rounds}")
+                             f" want rounds = {big_rounds}")
     if launches - big_launches < 1:
         raise AssertionError("the short stream never launched the kernel")
     blocks = parse_xa_header(refs["stereo6_5min"]).blocks
     K = pick_encode_chunks(blocks, 2)
     phase(4, "encode_main_path_launches", K=K, Bc=-(-blocks // K),
-          lanes=2 * K, rounds=rounds, encode_search=launches,
+          lanes=2 * K, rounds=big_rounds, encode_search=launches,
           decode_lanes=cuda_decode.LAUNCHES, filter_lanes=cuda_filter.LAUNCHES)
-    return {"big": big, "ref": refs["stereo6_5min"], "rounds": rounds,
+    return {"big": big, "ref": refs["stereo6_5min"], "rounds": big_rounds,
             "K": K, "launches": launches, "mid": mid, "seq_s": seq_s}
 
 
@@ -646,7 +769,7 @@ def encode_timings(torch, dev, gpu: str, enc: dict) -> tuple:
         wav_to_xa(mid, device=dev)
         auto.append(time.perf_counter() - t0)
     mrf = parse_riff_header(mid)
-    phase(5, "sequential_vs_auto", gpu=repr(gpu), stream="stereo6_60s",
+    phase(5, "sequential_vs_auto", gpu=repr(gpu), stream="stereo6_20s",
           samples=mrf.samples * mrf.channels,
           sequential_s=f"{enc['seq_s']:.6f}",
           auto_s=f"{statistics.median(auto):.6f}",
@@ -1102,6 +1225,363 @@ def corpus_timings(torch, dev, gpu: str, corp: dict, enc: dict,
     return ms[True]
 
 
+def check_measurement_kernels(torch, dev, rng) -> dict:
+    """Phase 2 for the measurement kernels: every instantiation of
+    ``decode_variants``, ``loadstore_bound`` and ``alu_mix`` against its
+    plain version on the card, at the scripts' shape and ragged ones; the
+    i16 variants also against the production kernels, the pair form against
+    i16 through its int16 view.  Returns the max |kernel - plain| each."""
+    from bjxa_tpu_torch.benchmarks import (_variants, load_variants,
+                                           roofline_bound, store_variants)
+    from bjxa_tpu_torch.ops import cuda_decode, cuda_decode_words as cdw
+    from bjxa_tpu_torch.ops.decode import pack_words_from_lanes
+    from bjxa_tpu_torch.tools import encode_pack_falsify as probe
+
+    worst = {"decode_variants": 0, "loadstore_bound": 0, "alu_mix": 0}
+    for B, L in VARIANT_SHAPES:
+        blocks_t = rng.integers(0, 256, size=(B, 33, L), dtype=np.uint8)
+        blocks_t[:, 0, :] = (rng.integers(0, 8, size=(B, L)) << 4
+                             | rng.integers(0, 16, size=(B, L))
+                             ).astype(np.uint8)
+        bt = torch.from_numpy(blocks_t).to(dev)
+        st = torch.from_numpy(rng.integers(
+            -(2**15), 2**15, size=(L, 2)).astype(np.int32)).to(dev)
+        prof, words = pack_words_from_lanes(bt, bits=8)
+        ref_w, end_w = cdw.fused_decode_words(prof, words, st, bits=8)
+        ref_l, end_l = cuda_decode.fused_decode_lanes(bt, st, bits=8)
+        runs = [(f"w32+{store}",
+                 load_variants.decode_w32(prof, words, st, store=store),
+                 load_variants.decode_w32_plain(prof, words, st, store=store))
+                for store in load_variants.STORES]
+        runs += [(f"u8+{mode}",
+                  store_variants.decode_variant(bt, st, mode=mode),
+                  store_variants.decode_variant_plain(bt, st, mode=mode))
+                 for mode in store_variants.MODES]
+        torch.cuda.synchronize()
+        for name, (out, end), (pout, pend) in runs:
+            e = max(exact_err(out, pout), exact_err(end, pend))
+            if name.endswith("pair"):
+                out = _variants.pair_to_i16(out)
+            elif name.endswith("i32"):
+                out = out.to(torch.int16)
+            ref, ref_end = (ref_w, end_w) if name[0] == "w" else (ref_l, end_l)
+            e = max(e, exact_err(out, ref), exact_err(end, ref_end))
+            worst["decode_variants"] = max(worst["decode_variants"], e)
+    for B, L, bits in WORDS_SHAPES:
+        prof, words, state = (torch.from_numpy(a).to(dev)
+                              for a in words_case(rng, B, L, bits))
+        out, end = roofline_bound.null_decode(prof, words, state)
+        pout, pend = roofline_bound.null_decode_plain(prof, words, state)
+        torch.cuda.synchronize()
+        worst["loadstore_bound"] = max(worst["loadstore_bound"],
+                                       exact_err(out, pout),
+                                       exact_err(end, pend))
+    for dtype in (torch.int32, torch.int16):
+        info = torch.iinfo(dtype)
+        for shape in (probe.SHAPE, (7, 8191)):
+            x = torch.from_numpy(rng.integers(
+                info.min, info.max + 1, size=shape)).to(dtype).to(dev)
+            for mix in probe.MIXES:
+                got = probe.alu_mix(x, mix=mix)
+                want = probe.alu_mix_plain(x, mix=mix)
+                torch.cuda.synchronize()
+                worst["alu_mix"] = max(worst["alu_mix"], exact_err(got, want))
+    return worst
+
+
+def segmented_cli_checks(tmp: pathlib.Path, whole_wav: bytes,
+                         bad_prefix: bytes) -> None:
+    """Phase 4 for the segmented decode through the CLI: the 5-minute
+    stream in 65,536-block segments gives the whole-file WAV; an invalid
+    profile and a truncated body fail on the card as on the CPU, with the
+    whole-file path's prefix."""
+    t0 = time.perf_counter()
+    res = run_cli("decode", "--segment-blocks", SEGMENT_BLOCKS,
+                  tmp / "stereo6_5min.xa", tmp / "seg.wav", platform=None)
+    if res.returncode != 0 or res.stderr:
+        raise AssertionError(f"segmented decode: exit {res.returncode}"
+                             f" {res.stderr.decode()[-2000:]}")
+    if (tmp / "seg.wav").read_bytes() != whole_wav:
+        raise AssertionError("segmented WAV != whole-file WAV")
+    phase(4, "cli_segmented_wav_equals_whole_file", stream="stereo6_5min",
+          segment_blocks=SEGMENT_BLOCKS, wav_bytes=len(whole_wav),
+          seconds=f"{time.perf_counter() - t0:.3f}")
+
+    bad = (tmp / "bad.xa").read_bytes()
+    channels, size = BAD_STREAM[1], 4 * BAD_STREAM[0] + 1
+    cut_blocks = BAD_STREAM[3][0] * 3 // 4  # before the invalid profile
+    (tmp / "cut.xa").write_bytes(bad[:32 + cut_blocks * channels * size + 17])
+    want_cut = bad_prefix[:44 + cut_blocks * 32 * channels * 2]
+    for name, label, want in (
+        ("bad", b"bjxa_decode: Protocol error\n", bad_prefix),
+        ("cut", b"fread: End of file\n", want_cut),
+    ):
+        for plat in (None, "cpu"):
+            res = run_cli("decode", "--segment-blocks", 4096,
+                          tmp / f"{name}.xa", tmp / f"{name}_seg_{plat}.wav",
+                          platform=plat)
+            if res.returncode != 1 or res.stderr != label:
+                raise AssertionError(
+                    f"segmented {name} on {plat or 'cuda'}: exit"
+                    f" {res.returncode} {res.stderr.decode()[-2000:]}")
+            if (tmp / f"{name}_seg_{plat}.wav").read_bytes() != want:
+                raise AssertionError(f"segmented {name} on {plat or 'cuda'}:"
+                                     " prefix differs from the whole-file"
+                                     " path's")
+        phase(4, "cli_segmented_failure", case=name, exit=1,
+              stderr=repr(label.decode().strip()), prefix_bytes=len(want),
+              equals_cpu=True)
+
+
+def big_file_segmented() -> dict:
+    """Phase 4: one file above the 256 MB threshold through ``decode`` with
+    no flag (the automatic segmented route) and, with the threshold raised,
+    through the whole-file path, each in its own process: the same WAV, and
+    a smaller peak RSS segmented."""
+    from bjxa_tpu_torch.benchmarks.segmented import write_big_xa
+
+    with tempfile.TemporaryDirectory(prefix="bjxa_smoke_big_") as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        fmt = write_big_xa(tmp / "big.xa", BIG_BLOCKS, seed=SEED)
+        gen_s = time.perf_counter() - t0
+        runs = {}
+        for name, env in (("segmented", {}),
+                          ("whole_file", {"BJXA_SEGMENT_THRESHOLD": 1 << 40})):
+            t0 = time.perf_counter()
+            code, err, rss = run_cli_rss("decode", tmp / "big.xa",
+                                         tmp / f"{name}.wav", **env)
+            if code != 0 or err:
+                raise AssertionError(f"big file, {name}: exit {code} {err}")
+            runs[name] = {"sha1": file_sha1(tmp / f"{name}.wav"),
+                          "rss_mb": rss, "s": time.perf_counter() - t0,
+                          "bytes": (tmp / f"{name}.wav").stat().st_size}
+            (tmp / f"{name}.wav").unlink()
+    seg, whole = runs["segmented"], runs["whole_file"]
+    if seg["sha1"] != whole["sha1"] or seg["bytes"] != 44 + fmt.data_len_pcm:
+        raise AssertionError(f"big file: segmented {seg} vs whole {whole}")
+    if seg["rss_mb"] >= whole["rss_mb"]:
+        raise AssertionError(f"big file: segmented peak RSS {seg['rss_mb']}"
+                             f" MB is not below {whole['rss_mb']} MB")
+    phase(4, "cli_big_file_auto_segmented", blocks=BIG_BLOCKS,
+          xa_mb=f"{fmt.data_len / 1e6:.1f}",
+          pcm_mb=f"{fmt.data_len_pcm / 1e6:.1f}", wav_sha1=seg["sha1"][:12],
+          segmented_rss_mb=f"{seg['rss_mb']:.1f}",
+          whole_file_rss_mb=f"{whole['rss_mb']:.1f}",
+          segmented_s=f"{seg['s']:.3f}", whole_file_s=f"{whole['s']:.3f}",
+          gen_s=f"{gen_s:.3f}")
+    return runs
+
+
+def segmented_counted(torch, dev, xa: bytes, whole_wav: bytes, wav: bytes,
+                      whole_xa: bytes) -> dict:
+    """Phase 4: the stream API in-process with its launches counted: the
+    5-minute streams through ``decode_xa_stream`` and ``encode_wav_stream``
+    in 65,536-block segments, the CLI's default."""
+    from bjxa_tpu_torch import decode_xa_stream, encode_wav_stream
+    from bjxa_tpu_torch.ops import cuda_decode, cuda_encode
+
+    cuda_decode.LAUNCHES = cuda_encode.LAUNCHES = 0
+    out = io.BytesIO()
+    fmt = decode_xa_stream(io.BytesIO(xa), out, device=dev,
+                           segment_blocks=SEGMENT_BLOCKS)
+    decode_launches = cuda_decode.LAUNCHES
+    if out.getvalue() != whole_wav:
+        raise AssertionError("decode_xa_stream WAV != whole-file WAV")
+    out = io.BytesIO()
+    encode_wav_stream(io.BytesIO(wav), out, device=dev,
+                      segment_blocks=SEGMENT_BLOCKS)
+    encode_launches = cuda_encode.LAUNCHES
+    if out.getvalue() != whole_xa:
+        raise AssertionError("encode_wav_stream XA != whole-file XA")
+    segments = -(-fmt.blocks // SEGMENT_BLOCKS)
+    if decode_launches < 2 * segments or encode_launches < segments:
+        raise AssertionError(
+            f"segmented path: {decode_launches} decode and {encode_launches}"
+            f" search launches over {segments} segments")
+    phase(4, "segmented_main_path_launches", segments=segments,
+          decode_lanes=decode_launches, encode_search=encode_launches)
+    return {"decode_lanes": decode_launches, "encode_search": encode_launches}
+
+
+def measurement_main_path(torch) -> dict:
+    """Phase 4 for the measurement path: every script's entry point
+    in-process at its full default shape, with every kernel's launches
+    counted from zero.  Returns the counts."""
+    from bjxa_tpu_torch import bench
+    from bjxa_tpu_torch.benchmarks import (ablate, load_variants,
+                                           roofline_bound, store_variants)
+    from bjxa_tpu_torch.ops import (cuda_decode, cuda_decode_words,
+                                    cuda_encode)
+    from bjxa_tpu_torch.tools import encode_pack_falsify as probe
+
+    counted = {"decode_lanes": cuda_decode, "decode_words": cuda_decode_words,
+               "encode_search": cuda_encode, "loadstore_bound": roofline_bound,
+               "load_variants": load_variants,
+               "store_variants": store_variants, "alu_mix": probe}
+    for mod in counted.values():
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    os.environ["BENCH_REPS"] = "3"
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            if bench.main() != 0:
+                raise AssertionError("bench.main() failed")
+            for run in (roofline_bound.main, load_variants.main,
+                        store_variants.main, ablate.main,
+                        probe.bench_int16_vs_int32):
+                run()
+    finally:
+        del os.environ["BENCH_REPS"]
+    records = [json.loads(line) for line in text.getvalue().splitlines()]
+    metrics = [r["metric"] for r in records]
+    if metrics[:3] != ["encode_search_throughput", "corpus_decode_files_per_s",
+                       "decode_throughput"]:
+        raise AssertionError(f"bench.main() printed {metrics[:3]}")
+    launches = {name: mod.LAUNCHES for name, mod in counted.items()}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the measurement path never ran:"
+                             f" {launches}")
+    phase(4, "measurement_main_path_launches", lines=len(records),
+          **launches, seconds=f"{time.perf_counter() - t0:.3f}")
+    return launches
+
+
+def measurement_timings(torch, dev, gpu: str) -> dict:
+    """Phase 5 for the measurement kernels: every instantiation against its
+    plain version and its bound at the scripts' shapes.  Returns, per
+    kernel name, what the summary needs."""
+    from bjxa_tpu_torch.benchmarks import (load_variants, roofline_bound,
+                                           store_variants)
+    from bjxa_tpu_torch.ops.decode import pack_words_from_lanes
+    from bjxa_tpu_torch.tools import encode_pack_falsify as probe
+
+    rng = np.random.default_rng(SEED + 7)
+    B, L = VARIANT_SHAPES[0]
+    samples = B * 32 * L
+    out = {}
+
+    # the load/store bound against the words decode on the same inputs
+    measured = {}
+    for bits in (4, 6, 8):
+        prof, words, state = (torch.from_numpy(a).to(dev)
+                              for a in words_case(rng, B, L, bits))
+        k = cuda_ms(torch, lambda: roofline_bound.null_decode(
+            prof, words, state), inner=20)
+        p = cuda_ms(torch, lambda: roofline_bound.null_decode_plain(
+            prof, words, state), reps=3)
+        moved = roofline_bound.words_traffic(B, L, bits)
+        b_ms, b_by = bound(moved, B * L * (bits + 32))
+        measured[bits] = k
+        phase(5, "time_loadstore_bound", gpu=repr(gpu),
+              shape=f"B={B},L={L},bits={bits}", kernel_ms=f"{k:.6f}",
+              plain_ms=f"{p:.6f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+              gb_per_s=f"{moved / k / 1e6:.3f}",
+              msamples_per_s=f"{samples / k / 1e3:.1f}")
+    out["loadstore_bound"] = {"ms": k, "plain_ms": p, "bound_ms": b_ms,
+                              "bound_by": b_by, "measured_ms": measured}
+
+    # the five instantiations of the variants kernel
+    blocks_t = rng.integers(0, 256, size=(B, 33, L), dtype=np.uint8)
+    blocks_t[:, 0, :] = (rng.integers(0, 5, size=(B, L)) << 4
+                         | rng.integers(0, 16, size=(B, L))).astype(np.uint8)
+    bt = torch.from_numpy(blocks_t).to(dev)
+    st = torch.zeros((L, 2), dtype=torch.int32, device=dev)
+    prof, words = pack_words_from_lanes(bt, bits=8)
+    runs = [(f"w32+{s}", lambda s=s: load_variants.decode_w32(
+                 prof, words, st, store=s),
+             lambda s=s: load_variants.decode_w32_plain(
+                 prof, words, st, store=s)) for s in load_variants.STORES]
+    runs += [(f"u8+{m}", lambda m=m: store_variants.decode_variant(
+                  bt, st, mode=m),
+              lambda m=m: store_variants.decode_variant_plain(
+                  bt, st, mode=m)) for m in store_variants.MODES]
+    variants = {}
+    for name, kernel, plain in runs:
+        k = cuda_ms(torch, kernel, inner=20)
+        p = cuda_ms(torch, plain, reps=3)
+        written = B * 32 * L * (4 if name.endswith("i32") else 2)
+        b_ms, b_by = bound(B * L * 33 + written + 2 * L * 8,
+                           samples * DECODE_OPS_PER_SAMPLE)
+        variants[name] = {"ms": k, "plain_ms": p, "bound_ms": b_ms,
+                          "bound_by": b_by}
+        phase(5, "time_decode_variant", gpu=repr(gpu), variant=name,
+              shape=f"B={B},L={L},bits=8", kernel_ms=f"{k:.6f}",
+              plain_ms=f"{p:.6f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+              gsamples_per_s=f"{samples / k / 1e6:.3f}")
+    out["decode_variants"] = dict(variants["w32+i16"], instantiations=variants)
+
+    # the ALU probe: both element types, every mix
+    mixes = {}
+    n = probe.SHAPE[0] * probe.SHAPE[1]
+    for dtype in (torch.int32, torch.int16):
+        x = probe.probe_input(dtype, dev)
+        for mix in probe.MIXES:
+            k = cuda_ms(torch, lambda: probe.alu_mix(x, mix=mix), inner=20)
+            p = cuda_ms(torch, lambda: probe.alu_mix_plain(x, mix=mix),
+                        reps=3)
+            b_ms, b_by = bound(2 * n * x.element_size(),
+                               n * probe.STEPS * probe.MIX_OPS[mix])
+            name = f"{str(dtype).removeprefix('torch.')}+{mix}"
+            mixes[name] = {"ms": k, "plain_ms": p, "bound_ms": b_ms,
+                           "bound_by": b_by}
+            phase(5, "time_alu_mix", gpu=repr(gpu), variant=name,
+                  shape=f"{probe.SHAPE[0]}x{probe.SHAPE[1]}x{probe.STEPS}",
+                  kernel_ms=f"{k:.6f}", plain_ms=f"{p:.6f}",
+                  bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+                  gelem_steps_per_s=f"{n * probe.STEPS / k / 1e6:.1f}")
+    out["alu_mix"] = dict(mixes["int32+full"], instantiations=mixes)
+    return out
+
+
+def bench_children(gpu: str) -> None:
+    """Phase 5: ``python -m bjxa_tpu_torch.bench`` and the bound, variant,
+    probe and segmented scripts, each in a child process; every JSON line
+    they print is echoed, and a nonzero exit is fatal."""
+    scripts = (
+        (["bjxa_tpu_torch.bench"], {},
+         ["encode_search_throughput", "corpus_decode_files_per_s",
+          "decode_throughput"]),
+        (["bjxa_tpu_torch.benchmarks.roofline_bound"], {},
+         ["loadstore_bound"] * 3),
+        (["bjxa_tpu_torch.benchmarks.load_variants"], {},
+         ["load_variant_rate"] * 4),
+        (["bjxa_tpu_torch.benchmarks.store_variants"], {},
+         ["store_variant_rate"] * 3),
+        (["bjxa_tpu_torch.tools.encode_pack_falsify", "--bench"], {},
+         ["alu_mix_rate"] * 6 + ["int16_over_int32_rate"] * 3),
+        (["bjxa_tpu_torch.benchmarks.segmented"], {"BENCH_REPS": 1},
+         ["segmented_decode_rate"]),
+    )
+    for argv, env, want in scripts:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                             env=child_env(None, **env), capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"{argv[0]}: exit {res.returncode}"
+                                 f" {res.stderr[-2000:]}")
+        records = [json.loads(line) for line in res.stdout.splitlines()]
+        if [r["metric"] for r in records] != want:
+            raise AssertionError(f"{argv[0]} printed"
+                                 f" {[r['metric'] for r in records]}")
+        for r in records:
+            if r["device"] != gpu:
+                raise AssertionError(f"{argv[0]} ran on {r['device']!r}")
+            print(f"phase 5 {argv[0].rsplit('.', 1)[-1]}: {json.dumps(r)}",
+                  flush=True)
+        if argv[0].endswith("roofline_bound"):
+            for r in records:
+                phase(5, "decode_words_vs_measured_bound", gpu=repr(gpu),
+                      bits=r["bits"], bound_gb_per_s=r["gb_per_s"],
+                      bound_msamples_per_s=r["value"],
+                      decode_words_ms=r["decode_words_ms"],
+                      share_of_bound=r["decode_words_share_of_bound"])
+        phase(5, "child_script", module=argv[0], lines=len(records),
+              seconds=f"{time.perf_counter() - t0:.3f}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1149,6 +1629,8 @@ def main() -> int:
     # the words kernel was added
     worst["decode_words"] = check_words_kernel(
         torch, dev, np.random.default_rng(SEED + 3))
+    worst.update(check_measurement_kernels(
+        torch, dev, np.random.default_rng(SEED + 11)))
     phase(2, "kernels_equal_plain", **worst)
 
     # ---- phase 3: known answers ---------------------------------------------
@@ -1214,6 +1696,7 @@ def main() -> int:
         phase(4, "cli_invalid_profile", exit=1,
               stderr=repr("bjxa_decode: Protocol error"),
               prefix_bytes=len(outs[None]), equals_cpu=True)
+        segmented_cli_checks(tmp, ref["stereo6_5min"], outs[None])
 
     # the fixed point on the card and on the CPU: same rounds, same output
     big = images["stereo6_5min"]
@@ -1255,11 +1738,15 @@ def main() -> int:
     phase(4, "main_path_launches", K=K, Bc=Bp // K, lanes=K * fmt.channels,
           rounds=rounds, **launches, encode_search=cuda_encode.LAUNCHES)
     enc = encode_main_path(torch, dev, rng)
+    seg_launches = segmented_counted(torch, dev, big, ref["stereo6_5min"],
+                                     enc["big"], enc["ref"])
+    big_file_segmented()
     ctmp_dir = tempfile.TemporaryDirectory(prefix="bjxa_smoke_corpus_")
     ctmp = pathlib.Path(ctmp_dir.name)
     corp = corpus_main_path(torch, dev, rng, ctmp)
     enc_corp = encode_corpus_main_path(torch, dev, rng, ctmp)
     worst["encode_search"] = max(worst["encode_search"], enc_corp["err"])
+    meas_launches = measurement_main_path(torch)
 
     # ---- phase 5: timings on the card ---------------------------------------
     ms = {}
@@ -1343,34 +1830,74 @@ def main() -> int:
     enc_ms = encode_timings(torch, dev, gpu, enc)
     words_ms = corpus_timings(torch, dev, gpu, corp, enc_corp, ctmp)
     ctmp_dir.cleanup()
+    meas = measurement_timings(torch, dev, gpu)
+    bench_children(gpu)
+
+    # each kernel's bound at the shape it was timed at: every input byte
+    # read once and every output byte written once over the memory rate, or
+    # its integer operations over the integer rate, whichever takes longer
+    from bjxa_tpu_torch.benchmarks.roofline_bound import words_traffic
+
+    Bc, S, KC = bt.shape
+    eB, eL = -(-parse_xa_header(enc["ref"]).blocks // enc["K"]), 2 * enc["K"]
+    wB, wL, wbits = WORDS_SHAPES[0]
+    bounds = {
+        "decode_lanes": bound(Bc * S * KC + Bc * 32 * KC * 2 + 2 * KC * 8,
+                              Bc * 32 * KC * DECODE_OPS_PER_SAMPLE),
+        "filter_lanes": bound(2 * 64 * 32 * 2 * 2 + 3 * 64 * 2 * 4 + 2 * 2 * 8,
+                              64 * 32 * 2 * FILTER_OPS_PER_SAMPLE),
+        "encode_search": bound(
+            3 * eB * 32 * eL * 2 + eB * eL * 4 + 2 * eL * 8,
+            eB * 32 * eL * 80 * ENCODE_OPS_PER_CANDIDATE_SAMPLE),
+        "decode_words": bound(words_traffic(wB, wL, wbits),
+                              wB * 32 * wL * DECODE_OPS_PER_SAMPLE),
+    }
+
+    def timed(name, ms_plain):
+        b_ms, b_by = bounds[name]
+        return {"ms": ms_plain[0], "plain_ms": ms_plain[1], "bound_ms": b_ms,
+                "bound_by": b_by}
+
+    def entry(name, replaces, by_path, timing, **more):
+        """One kernel of the summary.  ``library_ms`` is null throughout:
+        no single PyTorch call computes a saturating two-tap recurrence, the
+        80-candidate search or these probes."""
+        return {"name": name, "route": "cuda",
+                "source": f"bjxa_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": worst[name],
+                "library_ms": None, **timing, **more}
 
     summary = {"kernels": [
-        {"name": "decode_lanes", "route": "cuda",
-         "source": "bjxa_tpu_torch/csrc/decode_lanes.cu",
-         "replaces": "bjxa_tpu/ops/pallas_decode.py:83",
-         "launches": launches["decode_lanes"],
-         "max_abs_err": worst["decode_lanes"],
-         "ms": ms[("decode_lanes", True)][0],
-         "plain_ms": ms[("decode_lanes", True)][1]},
-        {"name": "filter_lanes", "route": "cuda",
-         "source": "bjxa_tpu_torch/csrc/filter_lanes.cu",
-         "replaces": "bjxa_tpu/ops/pallas_filter.py:36",
-         "launches": launches["filter_lanes"],
-         "max_abs_err": worst["filter_lanes"],
-         "ms": ms[("filter_lanes", True)][0],
-         "plain_ms": ms[("filter_lanes", True)][1]},
-        {"name": "encode_search", "route": "cuda",
-         "source": "bjxa_tpu_torch/csrc/encode_search.cu",
-         "replaces": "bjxa_tpu/ops/pallas_encode.py:52",
-         "launches": enc["launches"],
-         "max_abs_err": worst["encode_search"],
-         "ms": enc_ms[0], "plain_ms": enc_ms[1]},
-        {"name": "decode_words", "route": "cuda",
-         "source": "bjxa_tpu_torch/csrc/decode_words.cu",
-         "replaces": "bjxa_tpu/ops/pallas_decode.py:149",
-         "launches": corp["launches"],
-         "max_abs_err": worst["decode_words"],
-         "ms": words_ms[0], "plain_ms": words_ms[1]},
+        entry("decode_lanes", "bjxa_tpu/ops/pallas_decode.py:83",
+              {"xa_to_wav": launches["decode_lanes"],
+               "decode_xa_stream": seg_launches["decode_lanes"],
+               "benchmarks": meas_launches["decode_lanes"]},
+              timed("decode_lanes", ms[("decode_lanes", True)])),
+        entry("filter_lanes", "bjxa_tpu/ops/pallas_filter.py:36",
+              {"xa_to_wav": launches["filter_lanes"]},
+              timed("filter_lanes", ms[("filter_lanes", True)])),
+        entry("encode_search", "bjxa_tpu/ops/pallas_encode.py:52",
+              {"wav_to_xa": enc["launches"],
+               "encode_wav_stream": seg_launches["encode_search"],
+               "encode_corpus": enc_corp["launches"],
+               "bench": meas_launches["encode_search"]},
+              timed("encode_search", enc_ms)),
+        entry("decode_words", "bjxa_tpu/ops/pallas_decode.py:149",
+              {"decode_corpus": corp["launches"],
+               "bench": meas_launches["decode_words"]},
+              timed("decode_words", words_ms)),
+        entry("decode_variants", "benchmarks/bench_load_variants.py:43",
+              {"load_variants": meas_launches["load_variants"],
+               "store_variants": meas_launches["store_variants"]},
+              meas["decode_variants"],
+              also_replaces="benchmarks/bench_store_variants.py:32"),
+        entry("loadstore_bound", "benchmarks/bench_roofline_bound.py:54",
+              {"roofline_bound": meas_launches["loadstore_bound"]},
+              meas["loadstore_bound"]),
+        entry("alu_mix", "tools/encode_pack_falsify.py:152",
+              {"encode_pack_falsify": meas_launches["alu_mix"]},
+              meas["alu_mix"]),
     ]}
     phase(5, "total", seconds=f"{time.perf_counter() - t_start:.3f}")
     print(json.dumps(summary), flush=True)

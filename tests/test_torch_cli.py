@@ -141,7 +141,7 @@ def test_usage_paths_match(cpu_platform, args):
     assert terr.split("\n")[0] == jerr.split("\n")[0]
     assert tout[:6] == jout[:6]
     usage = tout.decode() if args == ["help"] else terr
-    assert "decode [<xa file> [<wav file>]]" in usage
+    assert "decode [--segment-blocks <n>] [<xa file> [<wav file>]]" in usage
     assert "encode [--bits <4|6|8>] [--truncate]" in usage
     assert ("corpus [--batch-files <n>] [--depth <k>] [--manifest <path>]"
             in usage)
@@ -150,10 +150,26 @@ def test_usage_paths_match(cpu_platform, args):
 
 @pytest.mark.parametrize("flag", ["--streaming", "--devices",
                                   "--segment-blocks"])
-def test_unported_decode_flags_fail(cpu_platform, flag):
-    code, out, err = run_cli(tcli.main, ["decode", flag, "2", "x.xa"])
-    assert code == 1 and out == b""
-    assert err.startswith(f"bjxa: {flag} is not yet ported\n")
+def test_unported_decode_flags_fail(cpu_platform, monkeypatch, tmp_path,
+                                    flag):
+    """``--streaming`` and ``--devices`` are not ported and say so;
+    ``--segment-blocks`` is, and answers as bjxa_tpu's CLI does: a missing
+    input, an invalid count, and a segmented decode's bytes."""
+    if flag != "--segment-blocks":
+        code, out, err = run_cli(tcli.main, ["decode", flag, "2", "x.xa"])
+        assert code == 1 and out == b""
+        assert err.startswith(f"bjxa: {flag} is not yet ported\n")
+        return
+    monkeypatch.setenv("BJXA_DEVICES", "1")  # read by the JAX CLI alone
+    got, want = both(["decode", flag, "2", str(tmp_path / "x.xa")])
+    assert got == want and got[0] == 1 and got[2].startswith("Error: ")
+    got, want = both(["decode", flag, "none", "x.xa"])
+    assert got[0] == want[0] == 1 and got[1] == want[1] == b""
+    assert got[2].split("\n")[0] == want[2].split("\n")[0]
+    for name in ("stereo6", "truncated", "invalid_profile"):
+        got, want = both(["decode", flag, "64", "-", "-"], STREAMS[name]())
+        assert got == want
+        assert got == run_cli(tcli.main, ["decode"], STREAMS[name]())
 
 
 @pytest.mark.parametrize("flag", ["--devices", "--coordinator",

@@ -128,12 +128,25 @@ def test_encode_unwritable_output_matches(cpu_platform, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--devices", "--segment-blocks"])
-def test_unported_encode_flags_fail(cpu_platform, flag):
-    for args in (["encode", flag, "2", "x.wav"],
-                 ["encode", "--bits", "4", flag, "2"]):
-        code, out, err = run_cli(tcli.main, args)
-        assert code == 1 and out == b""
-        assert err.startswith(f"bjxa: {flag} is not yet ported\n")
+def test_unported_encode_flags_fail(cpu_platform, monkeypatch, tmp_path,
+                                    flag):
+    """``--devices`` is not ported and says so; ``--segment-blocks`` is, and
+    answers as bjxa_tpu's CLI does: a missing input, and a segmented
+    encode's bytes after ``--bits``."""
+    if flag != "--segment-blocks":
+        for args in (["encode", flag, "2", "x.wav"],
+                     ["encode", "--bits", "4", flag, "2"]):
+            code, out, err = run_cli(tcli.main, args)
+            assert code == 1 and out == b""
+            assert err.startswith(f"bjxa: {flag} is not yet ported\n")
+        return
+    monkeypatch.setenv("BJXA_DEVICES", "1")  # read by the JAX CLI alone
+    got, want = both(["encode", flag, "2", str(tmp_path / "x.wav")])
+    assert got == want and got[0] == 1 and got[2].startswith("Error: ")
+    wav = make_wav(2, 70 * 32 + 5, seed=40)
+    got, want = both(["encode", "--bits", "4", flag, "32"], wav)
+    assert got == want and got[0] == 0
+    assert got == run_cli(tcli.main, ["encode", "--bits", "4"], wav)
 
 
 def test_encode_without_cuda_refuses_to_run(monkeypatch):

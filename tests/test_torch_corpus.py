@@ -154,8 +154,8 @@ def test_decode_corpus_explicit_paths_match_jax(tmp_path, corpus):
 
 def test_decode_corpus_oversized_files_match_jax(tmp_path, corpus,
                                                  monkeypatch):
-    """Every file above the segmentation threshold: the port's whole-file
-    route gives the bytes and failures of bjxa_tpu's segmented one."""
+    """Every file above the segmentation threshold: the port's segmented
+    route gives the bytes and failures of bjxa_tpu's."""
     monkeypatch.setenv("BJXA_SEGMENT_THRESHOLD", "1")
     res = tcorpus.decode_corpus(corpus, tmp_path / "t", device=CPU)
     want = _jax_decode(corpus, tmp_path / "j")
@@ -382,7 +382,8 @@ def test_encode_corpus_explicit_paths_and_truncated(tmp_path, wavs):
 def test_encode_corpus_file_changes_and_oversized(tmp_path, wavs,
                                                   monkeypatch, how):
     """Staging-time vanish or shrink degrades per file; oversized WAVs
-    encode whole-file with bjxa_tpu's bytes and failures."""
+    encode through the segmented route with bjxa_tpu's bytes and
+    failures."""
     src, _cases = wavs
     work = tmp_path / "src"
     shutil.copytree(src, work)

@@ -1,12 +1,13 @@
 """The CUDA kernels on the card against their plain PyTorch versions, and
-the whole-file decode and encode and the corpus engine on the card against
-the CPU.  Exact comparison.
+the whole-file and segmented decode and encode and the corpus engine on the
+card against the CPU.  Exact comparison.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  This file imports no JAX, so it also runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
+import io
 import struct
 
 import numpy as np
@@ -28,6 +29,20 @@ from bjxa_tpu_torch.ops import (
 )
 from bjxa_tpu_torch.ops.decode import decode_bytes, words_from_blocks_host
 from bjxa_tpu_torch.parallel.corpus import decode_corpus, encode_corpus
+from bjxa_tpu_torch import (
+    BjxaProtocolError,
+    decode_xa_stream,
+    encode_wav_stream,
+    xa_to_wav,
+)
+from bjxa_tpu_torch.benchmarks import (
+    _variants,
+    load_variants,
+    roofline_bound,
+    store_variants,
+)
+from bjxa_tpu_torch.ops.decode import iter_decode_segments
+from bjxa_tpu_torch.tools import encode_pack_falsify
 from bjxa_tpu_torch.ops.filter import profile_gains
 
 pytestmark = pytest.mark.cuda
@@ -304,3 +319,185 @@ def test_encode_corpus_card_matches_cpu(dev, tmp_path):
             assert (tmp_path / f"card{search}" / p.name).read_bytes() == (
                 p.read_bytes()
             )
+
+
+# -- the measurement kernels --------------------------------------------------
+
+
+@pytest.mark.parametrize("store", ["i16", "pair"])
+@pytest.mark.parametrize("B,L", [(40, 1000), (3, 129), (300, 3)])
+def test_load_variant_kernel_matches_plain(dev, store, B, L):
+    blocks_t, state = _lanes(8, B, L, seed=B + L, dev="cpu")
+    prof, words = words_from_blocks_host(blocks_t.numpy(), 8)
+    prof, words = torch.from_numpy(prof).to(dev), torch.from_numpy(words).to(dev)
+    state = state.to(dev)
+    before = load_variants.LAUNCHES
+    out, end = load_variants.decode_w32(prof, words, state, store=store)
+    assert load_variants.LAUNCHES == before + 1
+    pout, pend = load_variants.decode_w32_plain(prof, words, state,
+                                                store=store)
+    ref, ref_end = cuda_decode_words.fused_decode_words(prof, words, state,
+                                                        bits=8)
+    torch.cuda.synchronize()
+    assert out.dtype == pout.dtype and torch.equal(out, pout)
+    assert torch.equal(end, pend) and torch.equal(end, ref_end)
+    as_i16 = out if store == "i16" else _variants.pair_to_i16(out)
+    assert torch.equal(as_i16, ref)
+
+
+@pytest.mark.parametrize("mode", ["i16", "i32", "pair"])
+@pytest.mark.parametrize("B,L", [(40, 1000), (3, 129), (300, 3)])
+def test_store_variant_kernel_matches_plain(dev, mode, B, L):
+    blocks_t, state = _lanes(8, B, L, seed=2 * B + L, dev=dev)
+    before = store_variants.LAUNCHES
+    out, end = store_variants.decode_variant(blocks_t, state, mode=mode)
+    assert store_variants.LAUNCHES == before + 1
+    pout, pend = store_variants.decode_variant_plain(blocks_t, state,
+                                                     mode=mode)
+    ref, ref_end = cuda_decode.fused_decode_lanes(blocks_t, state, bits=8)
+    torch.cuda.synchronize()
+    assert out.dtype == pout.dtype and torch.equal(out, pout)
+    assert torch.equal(end, pend) and torch.equal(end, ref_end)
+    as_i16 = (_variants.pair_to_i16(out) if mode == "pair"
+              else out.to(torch.int16))
+    assert torch.equal(as_i16, ref)
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("B,L", [(40, 1000), (3, 129), (300, 3)])
+def test_loadstore_bound_kernel_matches_plain(dev, bits, B, L):
+    rng = np.random.default_rng(bits * B + L)
+    prof = torch.from_numpy(
+        rng.integers(0, 256, size=(B, L), dtype=np.uint8)).to(dev)
+    words = rng.integers(-(2**31), 2**31, size=(B, bits, L), dtype=np.int64)
+    words[:, :, 0] = 2**31 - 1  # sums that wrap
+    words = torch.from_numpy(words.astype(np.int32)).to(dev)
+    state = torch.from_numpy(
+        rng.integers(-(2**31), 2**31, size=(L, 2), dtype=np.int64)
+        .astype(np.int32)).to(dev)
+    before = roofline_bound.LAUNCHES
+    out, end = roofline_bound.null_decode(prof, words, state)
+    assert roofline_bound.LAUNCHES == before + 1
+    pout, pend = roofline_bound.null_decode_plain(prof, words, state)
+    torch.cuda.synchronize()
+    assert out.dtype == pout.dtype and torch.equal(out, pout)
+    assert end.dtype == pend.dtype and torch.equal(end, pend)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
+@pytest.mark.parametrize("mix", ["full", "clip", "muladd"])
+def test_alu_mix_kernel_matches_plain(dev, dtype, mix):
+    info = torch.iinfo(dtype)
+    rng = np.random.default_rng(len(mix))
+    x = rng.integers(info.min, info.max + 1, size=(37, 129))
+    x[0, :4] = [info.max, info.min, -1, 0]
+    x = torch.from_numpy(x).to(dtype).to(dev)
+    before = encode_pack_falsify.LAUNCHES
+    got = encode_pack_falsify.alu_mix(x, mix=mix)
+    assert encode_pack_falsify.LAUNCHES == before + 1
+    want = encode_pack_falsify.alu_mix_plain(x, mix=mix)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_measurement_wrappers_reject_bad_inputs(dev):
+    blocks_t, state = _lanes(8, 2, 8, seed=0, dev=dev)
+    prof, words = words_from_blocks_host(blocks_t.cpu().numpy(), 8)
+    prof, words = torch.from_numpy(prof).to(dev), torch.from_numpy(words).to(dev)
+    with pytest.raises(ValueError):
+        store_variants.decode_variant(blocks_t, state, mode="i8")
+    with pytest.raises(ValueError):
+        store_variants.decode_variant(blocks_t[:, :25].contiguous(), state,
+                                      mode="i16")
+    with pytest.raises(TypeError):
+        store_variants.decode_variant(blocks_t, state.long(), mode="i16")
+    with pytest.raises(ValueError):
+        store_variants.decode_variant(blocks_t, state.cpu(), mode="i16")
+    with pytest.raises(ValueError):
+        load_variants.decode_w32(prof, words, state, store="i32")
+    with pytest.raises(ValueError):
+        load_variants.decode_w32(prof[:1], words, state, store="i16")
+    with pytest.raises(TypeError):
+        load_variants.decode_w32(prof, words.long(), state, store="pair")
+    with pytest.raises(ValueError):
+        roofline_bound.null_decode(prof, words[:, :5].contiguous(), state)
+    with pytest.raises(TypeError):
+        roofline_bound.null_decode(prof.int(), words, state)
+    with pytest.raises(ValueError):
+        roofline_bound.null_decode(prof, words, state[:4])
+    x = torch.zeros((4, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        encode_pack_falsify.alu_mix(x, mix="fma")
+    with pytest.raises(TypeError):
+        encode_pack_falsify.alu_mix(x.long(), mix="full")
+    with pytest.raises(ValueError):
+        encode_pack_falsify.alu_mix(x.t(), mix="full")
+
+
+# -- the segmented path -------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits,channels,blocks,seg", [
+    (6, 2, 5000, 1024), (4, 1, 777, 100), (8, 2, 300, 7),
+])
+def test_segmented_decode_card_matches_whole_file(dev, bits, channels,
+                                                  blocks, seg):
+    data = _xa(bits, channels, blocks, seed=blocks + seg)
+    fmt = parse_xa_header(data)
+    before = cuda_decode.LAUNCHES + cuda_filter.LAUNCHES
+    parts = list(iter_decode_segments(io.BytesIO(data[32:]).read, fmt,
+                                      device=dev, segment_blocks=seg))
+    assert cuda_decode.LAUNCHES + cuda_filter.LAUNCHES > before
+    assert len(parts) == -(-blocks // seg)
+    np.testing.assert_array_equal(
+        np.concatenate(parts), decode_bytes(data[32:], fmt, device="cpu"))
+    out = io.BytesIO()
+    decode_xa_stream(io.BytesIO(data), out, device=dev, segment_blocks=seg)
+    assert out.getvalue() == xa_to_wav(data, device=dev)
+
+
+def test_segmented_decode_card_failures_match_cpu(dev):
+    data = bytearray(_xa(6, 2, 900, seed=77))
+    data[32 + (500 * 2 + 1) * 25] = 0xF0
+    fmt = parse_xa_header(bytes(data))
+    for payload in (bytes(data[32:]), bytes(data[32: 32 + 333 * 50 + 9])):
+        runs = []
+        for d in (dev, "cpu"):
+            parts, raised = [], None
+            try:
+                for p in iter_decode_segments(io.BytesIO(payload).read, fmt,
+                                              device=d, segment_blocks=128):
+                    parts.append(p)
+            except (EOFError, BjxaProtocolError) as e:
+                raised = (type(e).__name__, str(e))
+            runs.append((np.concatenate(parts), raised))
+        assert runs[0][1] == runs[1][1] and runs[0][1] is not None
+        np.testing.assert_array_equal(runs[0][0], runs[1][0])
+
+
+@pytest.mark.parametrize("search", [True, False])
+def test_segmented_encode_card_matches_whole_file(dev, search):
+    wav = _wav(2, 700 * 32 - 13, seed=5)
+    before = cuda_encode.LAUNCHES
+    out = io.BytesIO()
+    encode_wav_stream(io.BytesIO(wav), out, 6, search=search, device=dev,
+                      segment_blocks=96)
+    assert (cuda_encode.LAUNCHES > before) == search
+    assert out.getvalue() == wav_to_xa(wav, 6, search=search, device=dev)
+    assert out.getvalue() == wav_to_xa(wav, 6, search=search, device="cpu")
+
+
+def test_corpus_oversized_files_card_match_cpu(dev, tmp_path, monkeypatch):
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "big.xa").write_bytes(_xa(6, 2, 3000, seed=1))
+    (src / "small.xa").write_bytes(_xa(6, 2, 30, seed=2))
+    monkeypatch.setenv("BJXA_SEGMENT_THRESHOLD", "100000")
+    before = cuda_decode.LAUNCHES
+    card = decode_corpus(src, tmp_path / "card", device=dev)
+    assert cuda_decode.LAUNCHES > before  # the segmented route's kernel
+    cpu = decode_corpus(src, tmp_path / "cpu", device="cpu")
+    assert card.converted == cpu.converted == 2 and not card.failed
+    assert "segmented" in card.counters.stage_ms
+    for p in sorted((tmp_path / "cpu").glob("*.wav")):
+        assert (tmp_path / "card" / p.name).read_bytes() == p.read_bytes()
