@@ -9,12 +9,20 @@ error accumulates in float32 in sample order, the first strict minimum
 wins, and the winner is re-run to emit the coded values, the exact
 reconstruction and the carried predictor state.  It is bound by integer
 issue (~15 integer and 2 float ops per candidate-sample, 2,560
-candidate-samples per block); see the source for the design.
+candidate-samples per block).
+
+Design (see the source): one CTA of 16 warps owns 32 lanes; warp ``w``
+searches range ``w`` over the 5 factors for all 32 lanes, and the lane's
+winner is the lexicographic minimum of ``(err, profile)`` over the 16
+per-range winners, which is the plain version's first minimum
+(``torch.argmin`` over candidates in profile order).  The winners' full
+re-runs, which write ``coded`` and ``recon``, run after the block loop,
+in parallel over blocks.
 
 :func:`encode_search_lanes` routes by the tensors' device alone: a CPU
 tensor takes :func:`encode_search_lanes_plain`, a CUDA tensor launches the
 kernel, anything else raises.  No lane or block padding is needed: the
-kernel bounds-checks its lane and loops over every block.
+kernel masks the lanes of its last CTA and loops over every block.
 """
 
 from __future__ import annotations

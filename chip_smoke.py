@@ -101,6 +101,8 @@ GOLDEN = {
 # 5-minute stereo WAV: 413,438 blocks over K = 4096 chunks x 2 channels,
 # Bc = 101 blocks), then ragged ones.
 ENCODE_SHAPES = ((101, 8192), (3, 37), (64, 1), (1, 2))
+# Threads of one search CTA (csrc/encode_search.cu: 16 warps, one per range).
+ENCODE_CTA_THREADS = 512
 
 # WAVs through the CLI encoder: name -> (bits, channels, frames, flags).  The
 # first is the full-size main-path stream: 13,230,000 frames, 413,438 blocks,
@@ -334,6 +336,14 @@ def bound(bytes_moved: int, int_ops: int) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def encode_bound(B: int, L: int) -> tuple:
+    """``bound()`` of one search launch over ``B`` blocks x ``L`` lanes: the
+    PCM read once, coded, recon, profiles and end state written once, or
+    the integer operations of 80 candidates on every sample."""
+    return bound(3 * B * 32 * L * 2 + B * L * 4 + 2 * L * 8,
+                 B * 32 * L * 80 * ENCODE_OPS_PER_CANDIDATE_SAMPLE)
+
+
 def exact_err(a, b) -> int:
     """Max |a - b| over two tensors that must be equal; raises if not."""
     e = int((a.long() - b.long()).abs().max()) if a.numel() else 0
@@ -463,13 +473,29 @@ def encode_counted(torch, wav: bytes, bits: int, search: bool, device):
     return dump_xa_header(fmt) + payload, len(rounds)
 
 
+def tie_inputs(rng, B: int, L: int) -> list:
+    """Inputs full of exact ties, as ``(pcm, state)`` numpy pairs: the
+    ranking contract's multiples of 1024 from random entry states, and a
+    constant per lane entered from its own value (its ties pit a lower
+    range of a higher factor against a higher range of a lower factor, so a
+    tie-break by range instead of candidate order shows there)."""
+    ties = rng.integers(-14, 14, size=(B, 32, L)) * 1024
+    ties_state = rng.integers(-(2**15), 2**15, size=(L, 2))
+    c = rng.integers(-4096, 4097, size=L) >> rng.integers(0, 10, size=L)
+    flat = np.ascontiguousarray(np.broadcast_to(c, (B, 32, L)))
+    return [(ties, ties_state), (flat, np.stack([c, c], axis=-1))]
+
+
 def check_encode_kernel(torch, dev, rng) -> int:
     """Phase 2 for the search kernel: every bit depth, the main path's
-    round shape and ragged ones, full-scale noise and a sine plus noise,
-    random entry states.  Returns the max |kernel - plain| over profiles,
-    coded values, reconstruction and end state."""
+    round shape and ragged ones, full-scale noise and a sine plus noise
+    from random entry states, and the tie-heavy inputs of ``tie_inputs``
+    (from a stream of their own, so ``rng`` gives the later phases the
+    inputs it gave them before).  Returns the max |kernel - plain| over
+    profiles, coded values, reconstruction and end state."""
     from bjxa_tpu_torch.ops import cuda_encode
 
+    tie_rng = np.random.default_rng(SEED + 5)
     worst = 0
     for bits in (4, 6, 8):
         for B, L in ENCODE_SHAPES:
@@ -477,12 +503,13 @@ def check_encode_kernel(torch, dev, rng) -> int:
             t = np.arange(B * 32)[:, None] * (2 * np.pi / 41.0)
             sine = (20000 * np.sin(t + np.arange(L))).reshape(B, 32, L)
             sine += rng.normal(0.0, 2000.0, size=(B, 32, L))
-            for x in (noise, sine):
+            cases = [(x, rng.integers(-(2**15), 2**15, size=(L, 2)))
+                     for x in (noise, sine)]
+            for x, state in cases + tie_inputs(tie_rng, B, L):
                 pcm = torch.from_numpy(
                     np.clip(x, -32768, 32767).astype(np.int16)
                 ).to(dev)
-                st = torch.from_numpy(rng.integers(
-                    -(2**15), 2**15, size=(L, 2)).astype(np.int32)).to(dev)
+                st = torch.from_numpy(state.astype(np.int32)).to(dev)
                 got = cuda_encode.encode_search_lanes(pcm, st, bits=bits)
                 want = cuda_encode.encode_search_lanes_plain(pcm, st,
                                                              bits=bits)
@@ -690,9 +717,22 @@ def encode_timings(torch, dev, gpu: str, enc: dict) -> tuple:
         lanes, st, bits=6), inner=3)
     p = cuda_ms(torch, lambda: cuda_encode.encode_search_lanes_plain(
         lanes, st, bits=6), reps=3)
+    b_ms, b_by = encode_bound(Bc, K * C)
     phase(5, "time_encode_search", gpu=repr(gpu),
           shape=f"B={Bc},L={K * C},bits=6", kernel_ms=f"{k:.6f}",
-          plain_ms=f"{p:.6f}")
+          plain_ms=f"{p:.6f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by)
+    # bench.py's shape: 32 blocks x 4096 lanes of full-scale noise
+    bB, bL = 32, 4096
+    noise = np.random.default_rng(SEED + 7).integers(
+        -(2**15), 2**15, size=(bB, BLOCK_SAMPLES, bL))
+    noise = torch.from_numpy(noise.astype(np.int16)).to(dev)
+    zeros = torch.zeros((bL, 2), dtype=torch.int32, device=dev)
+    kb = cuda_ms(torch, lambda: cuda_encode.encode_search_lanes(
+        noise, zeros, bits=6), inner=4)
+    b_ms, b_by = encode_bound(bB, bL)
+    phase(5, "time_encode_search_bench_shape", gpu=repr(gpu),
+          shape=f"B={bB},L={bL},bits=6", kernel_ms=f"{kb:.6f}",
+          bound_ms=f"{b_ms:.6f}", bound_by=b_by)
 
     e2e = []
     wav_to_xa(big, device=dev)
@@ -1152,10 +1192,15 @@ def corpus_timings(torch, dev, gpu: str, corp: dict, enc: dict,
     torch.cuda.synchronize()
     exact_err(got_w, got_l)
     exact_err(end_w, end_l)
+    from bjxa_tpu_torch.benchmarks.roofline_bound import words_traffic
+
+    b_ms, b_by = bound(words_traffic(Bs, Lc, cbits),
+                       Bs * 32 * Lc * DECODE_OPS_PER_SAMPLE)
     phase(5, "time_words_vs_lanes_corpus_batch", gpu=repr(gpu),
           shape=f"B={Bs},L={Lc},bits={cbits}", words_ms=f"{kw:.6f}",
           lanes_ms=f"{kl:.6f}", lanes_over_words=f"{kl / kw:.4f}",
-          outputs_equal=True)
+          outputs_equal=True, words_bound_ms=f"{b_ms:.6f}",
+          bound_by=b_by)
 
     # one packed host->device copy against three of the same bytes
     parts = (buf[:nw], buf[nw:nw + npr], buf[nw + npr:])
@@ -1172,10 +1217,12 @@ def corpus_timings(torch, dev, gpu: str, corp: dict, enc: dict,
     zeros = torch.zeros((lanes.shape[2], 2), dtype=torch.int32, device=dev)
     search_ms = cuda_ms(torch, lambda: cuda_encode.encode_search_lanes(
         lanes, zeros, bits=6), reps=3)
+    b_ms, b_by = encode_bound(lanes.shape[0], lanes.shape[2])
     phase(5, "time_encode_search_corpus_batch", gpu=repr(gpu),
           shape=f"B={lanes.shape[0]},L={lanes.shape[2]},bits=6",
           kernel_ms=f"{search_ms:.6f}",
-          us_per_block=f"{search_ms * 1e3 / lanes.shape[0]:.3f}")
+          us_per_block=f"{search_ms * 1e3 / lanes.shape[0]:.3f}",
+          bound_ms=f"{b_ms:.6f}", bound_by=b_by)
 
     # decode_corpus end to end after a warm pass, median of 3, and the
     # stages it times itself
@@ -1620,6 +1667,15 @@ def main() -> int:
           **{f"{k}_registers": v["registers"] for k, v in report.items()},
           **{f"{k}_spill_bytes": v["spill_bytes"]
              for k, v in report.items()})
+    # the search kernel's CTAs per SM as its registers allow them (65,536
+    # registers an SM, allocated per thread in steps of 8; at most 2,048
+    # threads an SM)
+    enc_ptx = report["encode_search"]
+    regs = -(-max(enc_ptx["registers"]) // 8) * 8
+    phase(1, "encode_search_ptxas", registers=enc_ptx["registers"],
+          spill_bytes=enc_ptx["spill_bytes"], cta_threads=ENCODE_CTA_THREADS,
+          ctas_per_sm=min(65536 // (regs * ENCODE_CTA_THREADS),
+                          2048 // ENCODE_CTA_THREADS))
 
     # ---- phase 2: kernels against their plain versions ----------------------
     rng = np.random.default_rng(SEED)
@@ -1846,9 +1902,7 @@ def main() -> int:
                               Bc * 32 * KC * DECODE_OPS_PER_SAMPLE),
         "filter_lanes": bound(2 * 64 * 32 * 2 * 2 + 3 * 64 * 2 * 4 + 2 * 2 * 8,
                               64 * 32 * 2 * FILTER_OPS_PER_SAMPLE),
-        "encode_search": bound(
-            3 * eB * 32 * eL * 2 + eB * eL * 4 + 2 * eL * 8,
-            eB * 32 * eL * 80 * ENCODE_OPS_PER_CANDIDATE_SAMPLE),
+        "encode_search": encode_bound(eB, eL),
         "decode_words": bound(words_traffic(wB, wL, wbits),
                               wB * 32 * wL * DECODE_OPS_PER_SAMPLE),
     }

@@ -25,8 +25,10 @@ from bjxa_tpu_torch.benchmarks import (
     ablate,
     load_variants,
     roofline_bound,
+    search_unroll,
     store_variants,
 )
+from bjxa_tpu_torch.benchmarks._common import NoDeviceError
 from bjxa_tpu_torch.benchmarks import corpus as bcorpus
 from bjxa_tpu_torch.benchmarks import encode as bencode
 from bjxa_tpu_torch.benchmarks import segmented as bsegmented
@@ -357,6 +359,23 @@ def test_segmented_bench(tiny_env, monkeypatch, capsys):
     assert json.loads(capsys.readouterr().out) == rec
 
 
+@pytest.mark.parametrize("unroll", search_unroll.UNROLLS)
+def test_search_unroll_variants_change_the_pragma_alone(unroll):
+    """Each variant is the production search source with its sample loop's
+    pragma changed, and unroll 1 is the production source itself."""
+    prod = (search_unroll._build.CSRC / "encode_search.cu").read_text()
+    var = search_unroll.variant_source(unroll)
+    pragma = "#pragma unroll" + ("" if unroll == 32 else f" {unroll}")
+    loop = search_unroll.LOOP
+    assert var.replace(loop.replace("#pragma unroll 1", pragma), loop) == prod
+    assert (var == prod) == (unroll == 1)
+
+
+def test_search_unroll_needs_the_card(tiny_env):
+    with pytest.raises(NoDeviceError, match="needs the card"):
+        search_unroll.main()
+
+
 def _run_bench(env_extra, drop=()):
     env = dict(os.environ, PYTHONPATH=str(REPO), **env_extra)
     for name in drop:
@@ -407,7 +426,8 @@ def test_measurement_modules_import_no_jax():
         "import sys\n"
         "import bjxa_tpu_torch.bench\n"
         "from bjxa_tpu_torch.benchmarks import (ablate, corpus, encode,"
-        " load_variants, roofline_bound, segmented, store_variants)\n"
+        " load_variants, roofline_bound, search_unroll, segmented,"
+        " store_variants)\n"
         "from bjxa_tpu_torch.tools import encode_pack_falsify\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'bjxa_tpu')]\n"

@@ -155,23 +155,54 @@ def test_decode_bytes_card_matches_cpu(dev, bits, channels, blocks, kernel):
     )
 
 
+def _encode_signals(rng, B, L):
+    """``(pcm, state)`` pairs for the search kernel: full-scale noise from
+    random entry states; the ranking contract's multiples of 1024 from
+    random entry states (exact ties); a constant per lane entered from its
+    own value, whose exact ties pit a lower range of a higher factor
+    against a higher range of a lower factor (a tie-break by range index
+    instead of candidate order picks wrong there)."""
+    def state():
+        return rng.integers(-(2**15), 2**15, size=(L, 2))
+
+    noise = rng.integers(-(2**15), 2**15, size=(B, 32, L))
+    ties = rng.integers(-14, 14, size=(B, 32, L)) * 1024
+    c = rng.integers(-4096, 4097, size=L) >> rng.integers(0, 10, size=L)
+    flat = np.ascontiguousarray(np.broadcast_to(c, (B, 32, L)))
+    return [(noise, state()), (ties, state()),
+            (flat, np.stack([c, c], axis=-1))]
+
+
 @pytest.mark.parametrize("bits", [4, 6, 8])
-@pytest.mark.parametrize("B,L", [(3, 37), (64, 1), (1, 2), (5, 130)])
+@pytest.mark.parametrize("B,L", [(3, 37), (64, 1), (1, 2), (5, 130),
+                                 (4, 33), (3, 95), (3, 64), (2, 8192)])
 def test_encode_kernel_matches_plain(dev, bits, B, L):
+    """Ragged lane counts (the last CTA's masked threads still meet every
+    barrier), one lane, a full grid, and each signal of ``_encode_signals``
+    compared on all four outputs."""
     rng = np.random.default_rng(bits * 1000 + B * L)
-    pcm = torch.from_numpy(
-        rng.integers(-(2**15), 2**15, size=(B, 32, L)).astype(np.int16)
-    ).to(dev)
-    state = torch.from_numpy(
-        rng.integers(-(2**15), 2**15, size=(L, 2)).astype(np.int32)
-    ).to(dev)
-    before = cuda_encode.LAUNCHES
-    got = cuda_encode.encode_search_lanes(pcm, state, bits=bits)
-    assert cuda_encode.LAUNCHES == before + 1
-    want = cuda_encode.encode_search_lanes_plain(pcm, state, bits=bits)
+    for x, st in _encode_signals(rng, B, L):
+        pcm = torch.from_numpy(x.astype(np.int16)).to(dev)
+        state = torch.from_numpy(st.astype(np.int32)).to(dev)
+        before = cuda_encode.LAUNCHES
+        got = cuda_encode.encode_search_lanes(pcm, state, bits=bits)
+        assert cuda_encode.LAUNCHES == before + 1
+        want = cuda_encode.encode_search_lanes_plain(pcm, state, bits=bits)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_encode_kernel_no_blocks(dev):
+    """B = 0: no block runs and the entry state comes back as the end."""
+    state = torch.tensor([[5, -7], [32767, -32768]], dtype=torch.int32,
+                         device=dev)
+    pcm = torch.zeros((0, 32, 2), dtype=torch.int16, device=dev)
+    prof, coded, recon, end = cuda_encode.encode_search_lanes(
+        pcm, state, bits=6)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert prof.shape == (0, 2) and coded.shape == recon.shape == (0, 32, 2)
+    assert torch.equal(end, state)
 
 
 def test_encode_kernel_rank_contract(dev):

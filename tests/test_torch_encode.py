@@ -157,6 +157,106 @@ def test_rank_contract(case):
         assert prof.reshape(-1).tolist() == [want] * 16
 
 
+# -- the search kernel's two-level reduction (csrc/encode_search.cu) ----------
+
+
+def _two_level_choice(err, by_range=False):
+    """The kernel's choice in plain torch, from ``err float32[80, L]``
+    (row = profile = factor*16 + range): each range's warp keeps the first
+    strict minimum over its factors, then the 16 winners are reduced in
+    range order by the lexicographic ``(err, profile)`` minimum, or, with
+    ``by_range``, by the first minimum in range order."""
+    L = err.shape[1]
+    per = err.reshape(5, 16, L)  # [factor, range, lane]
+    best_e, best_p = per[0], torch.arange(16)[:, None].repeat(1, L)
+    for f in range(1, 5):
+        take = per[f] < best_e
+        best_e = torch.where(take, per[f], best_e)
+        best_p = torch.where(take, f * 16 + torch.arange(16)[:, None], best_p)
+    e, p = best_e[0], best_p[0]
+    for r in range(1, 16):
+        take = best_e[r] < e
+        if not by_range:
+            take |= (best_e[r] == e) & (best_p[r] < p)
+        e = torch.where(take, best_e[r], e)
+        p = torch.where(take, best_p[r], p)
+    return p
+
+
+def _candidate_errors(pcm, state, bits):
+    """Squared error of every candidate over one block, ``float32[80, L]``,
+    summed in sample order (``pcm`` ``int[32, L]``, ``state`` ``int[L, 2]``):
+    the recurrence of ``encode_search_lanes_plain`` without the choice."""
+    f = torch.arange(80) // 16
+    r = (torch.arange(80) % 16)[:, None]
+    k0 = torch.tensor([0, 240, 460, 392, 488])[f][:, None]
+    k1 = torch.tensor([0, 0, -208, -220, -240])[f][:, None]
+    shq = 16 - bits
+    down = torch.clamp(shq - r, min=0)
+    up = torch.clamp(r - shq, min=0)
+    a0 = torch.as_tensor(state[:, 0]).long().expand(80, -1)
+    a1 = torch.as_tensor(state[:, 1]).long().expand(80, -1)
+    err = torch.zeros((80, pcm.shape[1]), dtype=torch.float32)
+    for n in range(32):
+        x = torch.as_tensor(pcm[n]).long()[None]
+        g = a0 * k0 + a1 * k1
+        pred = torch.where(g < 0, -((-g) >> 8), g >> 8)
+        diff = x - pred
+        q = torch.where(r <= shq, (diff + ((1 << down) >> 1)) >> down,
+                        diff << up)
+        q = q.clamp(-(1 << (bits - 1)), (1 << (bits - 1)) - 1)
+        rec = (((q << shq) >> r) + pred).clamp(-32768, 32767)
+        e = (x - rec).to(torch.float32)
+        err = err + e * e
+        a0, a1 = rec, a0
+    return err
+
+
+@pytest.mark.parametrize("L", [1, 37, 256])
+def test_two_level_reduction_is_first_minimum(L):
+    """On error tables full of exact ties (small integers, and equal minima
+    at profiles 0x0F and 0x10 in every other lane), the per-range first
+    minimum followed by the lexicographic (err, profile) minimum over
+    ranges is ``torch.argmin``'s first minimum, the plain search's choice."""
+    rng = np.random.default_rng(L)
+    err = torch.from_numpy(rng.integers(1, 4, size=(80, L)).astype(np.float32))
+    err[0x0F, ::2] = 0.0
+    err[0x10, ::2] = 0.0
+    want = torch.argmin(err, dim=0)
+    assert torch.equal(_two_level_choice(err), want)
+    assert (want[::2] == 0x0F).all()
+
+
+def test_range_tie_break_is_wrong():
+    """0x0F (factor 0, range 15) precedes 0x10 (factor 1, range 0): a
+    reduction that breaks ties by range index picks 0x10."""
+    err = torch.full((80, 1), 5.0)
+    err[0x0F] = err[0x10] = 1.0
+    assert _two_level_choice(err).tolist() == [0x0F]
+    assert _two_level_choice(err, by_range=True).tolist() == [0x10]
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+def test_flat_signal_exposes_range_tie_break(bits):
+    """The card tests' constant-per-lane signal, entered from its own
+    value, has exact ties on which the range-order reduction and the first
+    minimum disagree; the lexicographic one agrees with the plain search."""
+    rng = np.random.default_rng(bits)
+    L = 512
+    c = rng.integers(-4096, 4097, size=L) >> rng.integers(0, 10, size=L)
+    pcm = np.ascontiguousarray(np.broadcast_to(c, (32, L)))
+    state = np.stack([c, c], axis=-1).astype(np.int32)
+    err = _candidate_errors(pcm, state, bits)
+    prof, *_ = cuda_encode.encode_search_lanes_plain(
+        torch.from_numpy(pcm[None].astype(np.int16)),
+        torch.from_numpy(state), bits=bits,
+    )
+    want = torch.argmin(err, dim=0)
+    assert torch.equal(prof[0].long(), want)
+    assert torch.equal(_two_level_choice(err), want)
+    assert (_two_level_choice(err, by_range=True) != want).any()
+
+
 # -- the chunk-parallel fixed point -------------------------------------------
 
 
