@@ -38,8 +38,12 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     # blocks_t, state, pcm, end, B, L, bits, with_output, device, stream
     "bjxa_decode_lanes": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # prof, words, state, pcm, end, B, L, bits, with_output, device, stream
-    "bjxa_decode_words": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # prof, words, state, pcm, end, scratch, B, L, K, Bc, bits, with_output,
+    # ctas, device, stream
+    "bjxa_decode_words": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P),
+    # bits, with_output, device
+    "bjxa_decode_words_occupancy": (_I, _I, _I),
     # samples, k0, k1, shift, state, pcm, end, B, L, with_output, device,
     # stream
     "bjxa_filter_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

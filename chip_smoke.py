@@ -12,6 +12,9 @@ Phases, one line each (any failure raises and exits nonzero):
    registers and spills;
 2. each kernel, every instantiation, against its plain PyTorch version on
    the card at the main paths' shapes and at ragged ones: exact equality;
+   the words kernel's chunked schedule also against its chunked plain
+   version, round counts included (ragged chunks, a slow-merging stream,
+   B = 0, a persistent grid smaller than the work, K = 1, a corpus batch);
 3. known answers: the saturation vector's WAV SHA-1 (and the reference's
    golden fixtures when ``BJXA_REFERENCE_DIR`` points at them), the
    encoder's ranking-contract vectors, and an encode -> decode round trip
@@ -34,8 +37,10 @@ Phases, one line each (any failure raises and exits nonzero):
    measurement scripts run in-process with their launches counted;
 5. timings on the card (CUDA events, median of repeats after warm-up), the
    per-stage split of each main path, the encoder's sequential search
-   against its fixed point, the words kernel against the lanes kernel and
-   the search kernel alone on a corpus batch, and the corpus engine end to
+   against its fixed point, the words kernel against the lanes kernel, over
+   a sweep of chunk counts, and the search kernel alone on a corpus batch,
+   the words kernel's share of the measured load/store bound at the
+   headline shape, and the corpus engine end to
    end, split by the stages it times itself (``Counters.stage_ms``); the
    measurement kernels against their plain versions and their bounds; and
    ``python -m bjxa_tpu_torch.bench`` and the bound, variant and probe
@@ -128,6 +133,20 @@ CUT_WAV = (6, 2, 44100 * 20, 1234567)
 # stereo 8-bit files x 64 blocks), then ragged shapes.
 WORDS_SHAPES = ((64, 32768, 8), (7, 8191, 4), (7, 8191, 6), (300, 3, 4),
                 (300, 3, 6))
+# The words kernel's chunked schedule, (B, L, bits, K, stream): K forced, or
+# None for the wrapper's own pick_word_chunks; "slow" is the slow-merging
+# stream (factor 4, range 12, payload bytes near zero).  A prime B leaves a
+# short last chunk; B = 300, L = 8191 at K = 37 has more work items than the
+# persistent grid has threads; the last two are the headline (K = 1) and a
+# corpus batch.
+WORDS_CHUNKED = ((23, 33, 8, 7, "random"), (23, 33, 4, 23, "slow"),
+                 (23, 33, 6, 23, "slow"), (23, 1, 6, 3, "random"),
+                 (0, 1, 8, None, "random"), (1, 1, 4, 5, "random"),
+                 (300, 8191, 4, 37, "random"), (300, 3, 6, 1, "random"),
+                 (64, 32768, 8, None, "random"), (20736, 32, 8, None, "random"))
+# Chunk counts timed on a corpus batch besides the wrapper's: B/8, B/16,
+# B/32 and the serial loop (K = 1).
+WORDS_K_SWEEP = (8, 16, 32)
 # The corpus through the CLI, bench.py's corpus shape: 32 stereo 8-bit files
 # of 20,672 blocks, 16 files a batch -> 2 batches of L = 32 lanes x 20,736
 # blocks (43.7 MB of XA, 84.7 MB of PCM).
@@ -827,10 +846,24 @@ def words_case(rng, B: int, L: int, bits: int):
     return prof, words, state
 
 
+def slow_words_case(rng, B: int, L: int, bits: int):
+    """The slow-merging stream in the words layout: factor 4 (the filter
+    that forgets slowest), range 12, payload bytes of 0x00, 0x11, 0xEE or
+    0xFF (tiny residuals), int16-range states."""
+    prof = np.full((B, L), 4 << 4 | 12, np.uint8)
+    pay = rng.choice(np.array([0x00, 0x11, 0xEE, 0xFF], np.uint8),
+                     size=(B, bits, 4, L))
+    words = np.ascontiguousarray(pay.transpose(0, 1, 3, 2)).view("<i4")
+    state = rng.integers(-(2**15), 2**15, size=(L, 2)).astype(np.int32)
+    return prof, words.reshape(B, bits, L), state
+
+
 def check_words_kernel(torch, dev, rng) -> int:
     """Phase 2 for the words kernel: both instantiations against the plain
-    version at the bench.py headline shape and ragged ones.  Returns the
-    max |kernel - plain|."""
+    version at the bench.py headline shape and ragged ones, then the
+    chunked schedule (``WORDS_CHUNKED``) against the chunked plain version,
+    rounds included, and the sequential one where it is short.  Returns
+    the max |kernel - plain|."""
     from bjxa_tpu_torch.ops import cuda_decode_words as cdw
 
     worst = 0
@@ -849,6 +882,44 @@ def check_words_kernel(torch, dev, rng) -> int:
             elif pcm is not None:
                 raise AssertionError("states-only run returned PCM")
             worst = max(worst, e)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, L, bits, chunks, stream in WORDS_CHUNKED:
+        make = slow_words_case if stream == "slow" else words_case
+        prof, words, state = (torch.from_numpy(a).to(dev)
+                              for a in make(rng, B, L, bits))
+        K = chunks if chunks is not None else cdw.pick_word_chunks(B, L, sms)
+        K, Bc = cdw.word_chunks(B, K)
+        got_rounds = {}
+        for wo in (True, False):
+            pcm, end, rounds = cdw.fused_decode_words_chunked(
+                prof, words, state, bits=bits, with_output=wo, chunks=chunks)
+            ppcm, pend, prounds = cdw.fused_decode_words_chunked_plain(
+                prof, words, state, bits=bits, chunks=K, with_output=wo)
+            torch.cuda.synchronize()
+            e = exact_err(end, pend)
+            if wo:
+                e = max(e, exact_err(pcm, ppcm))
+            if B <= 2048:  # the sequential plain version: B*32 steps
+                spcm, send = cdw.fused_decode_words_plain(
+                    prof, words, state, bits=bits, with_output=wo)
+                torch.cuda.synchronize()
+                e = max(e, exact_err(end, send))
+                if wo:
+                    e = max(e, exact_err(pcm, spcm))
+            got_rounds[wo] = int(rounds.item())
+            if got_rounds[wo] != prounds:
+                raise AssertionError(
+                    f"words kernel at B={B}, L={L}, K={K}: {got_rounds[wo]}"
+                    f" rounds, the chunked plain version {prounds}")
+            worst = max(worst, e)
+        if stream == "slow" and not 2 < got_rounds[True] <= K:
+            raise AssertionError(f"slow-merging stream: {got_rounds} rounds")
+        phase(2, "words_chunked_equal_plain", shape=f"B={B},L={L},bits={bits}",
+              stream=stream, K=K, Bc=Bc, forced=chunks is not None,
+              rounds=got_rounds[True], rounds_states_only=got_rounds[False],
+              items=K * L, grid_threads=cdw.CTA_THREADS * cdw.persistent_ctas(
+                  K * L, bits=bits, with_output=True, device=dev),
+              sequential_checked=B <= 2048)
     return worst
 
 
@@ -1132,7 +1203,8 @@ def corpus_timings(torch, dev, gpu: str, corp: dict, enc: dict,
     batch, the packed H2D against three, the search kernel on the encode
     corpus's batch, and ``decode_corpus`` and ``encode_corpus`` end to end
     and by the stages they time themselves.  Returns the words kernel's
-    and its plain version's ms at the headline shape."""
+    and its plain version's ms at the headline shape, with and without
+    output, and the corpus batch's numbers."""
     import shutil
 
     from bjxa_tpu_torch import decode_corpus, encode_corpus, parse_xa_header
@@ -1154,8 +1226,12 @@ def corpus_timings(torch, dev, gpu: str, corp: dict, enc: dict,
             prof, words, state, bits=bits, with_output=wo), reps=3)
         ms[wo] = (k, p)
         moved = B * L * (4 * bits + 1) + (B * 32 * L * 2 if wo else 0)
+        _p, _e, rounds = cdw.fused_decode_words_chunked(
+            prof, words, state, bits=bits, with_output=wo)
         phase(5, "time_decode_words", gpu=repr(gpu),
               shape=f"B={B},L={L},bits={bits}", with_output=wo,
+              K=cdw.pick_word_chunks(B, L, torch.cuda.get_device_properties(
+                  dev).multi_processor_count), rounds=int(rounds.item()),
               kernel_ms=f"{k:.6f}", plain_ms=f"{p:.6f}",
               mbytes=f"{moved / 1e6:.3f}",
               gb_per_s=f"{moved / (k * 1e-3) / 1e9:.3f}")
@@ -1183,24 +1259,55 @@ def corpus_timings(torch, dev, gpu: str, corp: dict, enc: dict,
     cstate = dbuf[nw + npr:].reshape(Lc, 2)
     blocks_t = tdecode.words_to_blocks(cprof, cwords, bits=cbits).contiguous()
     kw = cuda_ms(torch, lambda: cdw.fused_decode_words(
-        cprof, cwords, cstate, bits=cbits), reps=5)
+        cprof, cwords, cstate, bits=cbits), reps=7, inner=20)
     kl = cuda_ms(torch, lambda: cuda_decode.fused_decode_lanes(
         blocks_t, cstate, bits=cbits), reps=5)
-    got_w, end_w = cdw.fused_decode_words(cprof, cwords, cstate, bits=cbits)
+    got_w, end_w, rounds_w = cdw.fused_decode_words_chunked(
+        cprof, cwords, cstate, bits=cbits)
     got_l, end_l = cuda_decode.fused_decode_lanes(blocks_t, cstate,
                                                   bits=cbits)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    K = cdw.pick_word_chunks(Bs, Lc, sms)
+    got_p, end_p, rounds_p = cdw.fused_decode_words_chunked_plain(
+        cprof, cwords, cstate, bits=cbits, chunks=K)
     torch.cuda.synchronize()
-    exact_err(got_w, got_l)
-    exact_err(end_w, end_l)
+    for want, want_end in ((got_l, end_l), (got_p, end_p)):
+        exact_err(got_w, want)
+        exact_err(end_w, want_end)
+    if int(rounds_w.item()) != rounds_p:
+        raise AssertionError(f"corpus batch: {int(rounds_w.item())} rounds,"
+                             f" the chunked plain version {rounds_p}")
     from bjxa_tpu_torch.benchmarks.roofline_bound import words_traffic
 
     b_ms, b_by = bound(words_traffic(Bs, Lc, cbits),
                        Bs * 32 * Lc * DECODE_OPS_PER_SAMPLE)
     phase(5, "time_words_vs_lanes_corpus_batch", gpu=repr(gpu),
-          shape=f"B={Bs},L={Lc},bits={cbits}", words_ms=f"{kw:.6f}",
-          lanes_ms=f"{kl:.6f}", lanes_over_words=f"{kl / kw:.4f}",
-          outputs_equal=True, words_bound_ms=f"{b_ms:.6f}",
-          bound_by=b_by)
+          shape=f"B={Bs},L={Lc},bits={cbits}", K=K,
+          Bc=cdw.word_chunks(Bs, K)[1], rounds=rounds_p,
+          words_ms=f"{kw:.6f}", lanes_ms=f"{kl:.6f}",
+          lanes_over_words=f"{kl / kw:.4f}", outputs_equal=True,
+          words_bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+          share_of_bound=f"{b_ms / kw:.4f}")
+    # the chunk count: B/8, B/16, B/32 and the serial loop (K = 1), timed
+    # in turns, each with its rounds
+    sweep = {}
+    for div in (*WORDS_K_SWEEP, None):
+        k = Bs // div if div else 1
+        for wo in (True, False):
+            t = cuda_ms(torch, lambda: cdw.fused_decode_words_chunked(
+                cprof, cwords, cstate, bits=cbits, with_output=wo,
+                chunks=k), reps=5, inner=20 if div else 1)
+            _p, _e, r = cdw.fused_decode_words_chunked(
+                cprof, cwords, cstate, bits=cbits, with_output=wo, chunks=k)
+            sweep[(k, wo)] = (t, int(r.item()))
+            phase(5, "time_words_corpus_batch_chunks", gpu=repr(gpu),
+                  shape=f"B={Bs},L={Lc},bits={cbits}", K=k,
+                  Bc=cdw.word_chunks(Bs, k)[1], with_output=wo,
+                  kernel_ms=f"{t:.6f}", rounds=int(r.item()),
+                  picked=k == K)
+    corpus_batch = {"shape": f"B={Bs},L={Lc},bits={cbits}", "ms": kw,
+                    "K": K, "rounds": rounds_p, "bound_ms": b_ms,
+                    "bound_by": b_by, "serial_ms": sweep[(1, True)][0]}
 
     # one packed host->device copy against three of the same bytes
     parts = (buf[:nw], buf[nw:nw + npr], buf[nw + npr:])
@@ -1269,7 +1376,7 @@ def corpus_timings(torch, dev, gpu: str, corp: dict, enc: dict,
           search_share=f"{search_ms / (e2e * 1e3):.4f}")
     phase(5, "encode_corpus_stages_ms", gpu=repr(gpu), **stage_split(counted),
           phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
-    return ms[True]
+    return ms, corpus_batch
 
 
 def check_measurement_kernels(torch, dev, rng) -> dict:
@@ -1884,9 +1991,19 @@ def main() -> int:
           **{k: f"{statistics.median(v):.3f}" for k, v in stages.items()})
 
     enc_ms = encode_timings(torch, dev, gpu, enc)
-    words_ms = corpus_timings(torch, dev, gpu, corp, enc_corp, ctmp)
+    words_ms, words_corpus = corpus_timings(torch, dev, gpu, corp, enc_corp,
+                                            ctmp)
     ctmp_dir.cleanup()
     meas = measurement_timings(torch, dev, gpu)
+    # the words kernel at the headline against the load/store bound measured
+    # on the same shape in this run (row 9 of PERF.md)
+    measured_8 = meas["loadstore_bound"]["measured_ms"][8]
+    phase(5, "decode_words_share_of_measured_bound", gpu=repr(gpu),
+          shape="B={},L={},bits={}".format(*WORDS_SHAPES[0]),
+          kernel_ms=f"{words_ms[True][0]:.6f}",
+          states_only_ms=f"{words_ms[False][0]:.6f}",
+          measured_bound_ms=f"{measured_8:.6f}",
+          share=f"{measured_8 / words_ms[True][0]:.4f}")
     bench_children(gpu)
 
     # each kernel's bound at the shape it was timed at: every input byte
@@ -1940,7 +2057,10 @@ def main() -> int:
         entry("decode_words", "bjxa_tpu/ops/pallas_decode.py:149",
               {"decode_corpus": corp["launches"],
                "bench": meas_launches["decode_words"]},
-              timed("decode_words", words_ms)),
+              timed("decode_words", words_ms[True]),
+              states_only_ms=words_ms[False][0],
+              measured_bound_ms=measured_8, corpus_batch=words_corpus,
+              also_replaces="bjxa_tpu/ops/pallas_decode.py:237"),
         entry("decode_variants", "benchmarks/bench_load_variants.py:43",
               {"load_variants": meas_launches["load_variants"],
                "store_variants": meas_launches["store_variants"]},

@@ -308,6 +308,120 @@ def test_words_wrapper_rejects_bad_inputs(dev):
             cuda_decode_words.fused_decode_words(p, w, st, bits=bits)
 
 
+def _words_case(bits, B, L, seed, dev, slow=False):
+    """Words-layout inputs on ``dev``: random payload and profiles with
+    factors 0-7 (5-7 invalid), or (``slow``) the slow-merging stream --
+    factor 4, range 12, payload bytes near zero; int16-range states."""
+    rng = np.random.default_rng(seed)
+    blocks_t = rng.integers(0, 256, size=(B, 4 * bits + 1, L), dtype=np.uint8)
+    blocks_t[:, 0, :] = (rng.integers(0, 8, size=(B, L)) << 4
+                         | rng.integers(0, 16, size=(B, L))).astype(np.uint8)
+    if slow:
+        blocks_t[:, 1:, :] = rng.choice(
+            np.array([0x00, 0x11, 0xEE, 0xFF], np.uint8),
+            size=(B, 4 * bits, L))
+        blocks_t[:, 0, :] = 4 << 4 | 12
+    state = rng.integers(-(2**15), 2**15, size=(L, 2)).astype(np.int32)
+    prof, words = words_from_blocks_host(blocks_t, bits)
+    return tuple(torch.from_numpy(a).to(dev) for a in (prof, words, state))
+
+
+def _chunked_equals_plains(prof, words, state, bits, chunks):
+    """The kernel at ``chunks`` against the chunked plain version (PCM, end
+    and rounds) and the sequential one, with and without output.  Returns
+    the kernel's rounds."""
+    cdw = cuda_decode_words
+    K, _Bc = cdw.word_chunks(words.shape[0], chunks)
+    for wo in (True, False):
+        before = cdw.LAUNCHES
+        pcm, end, rounds = cdw.fused_decode_words_chunked(
+            prof, words, state, bits=bits, with_output=wo, chunks=chunks)
+        assert cdw.LAUNCHES == before + 1
+        ppcm, pend, prounds = cdw.fused_decode_words_chunked_plain(
+            prof, words, state, bits=bits, chunks=chunks, with_output=wo)
+        spcm, send = cdw.fused_decode_words_plain(prof, words, state,
+                                                  bits=bits, with_output=wo)
+        torch.cuda.synchronize()
+        assert int(rounds.item()) == prounds
+        assert (prounds == 0) if K == 1 else (1 <= prounds <= K)
+        assert torch.equal(end, pend) and torch.equal(end, send)
+        assert (pcm is None) == (not wo)
+        if wo:
+            assert torch.equal(pcm, ppcm) and torch.equal(pcm, spcm)
+    return prounds
+
+
+@pytest.mark.parametrize("K", [1, 3, 7, 23])
+@pytest.mark.parametrize("L", [1, 2, 32, 33])
+@pytest.mark.parametrize("bits", [4, 6, 8])
+def test_words_kernel_chunks_match_plains(dev, bits, L, K):
+    """Forced K over B = 23 (a short last chunk unless K is 1 or 23),
+    invalid profiles in mid-stream."""
+    prof, words, state = _words_case(bits, 23, L, bits * 100 + L, dev)
+    _chunked_equals_plains(prof, words, state, bits, K)
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+def test_words_kernel_slow_merging_stream(dev, bits):
+    prof, words, state = _words_case(bits, 23, 33, bits, dev, slow=True)
+    assert 2 < _chunked_equals_plains(prof, words, state, bits, 23) <= 23
+
+
+@pytest.mark.parametrize("bits,B,L,K", [
+    (8, 0, 1, 5),  # no blocks: end = state, no round
+    (6, 1, 1, 4),  # one block, one lane
+    (8, 64, 32768, 1),  # the headline, K = 1
+    (6, 300, 3, 1),  # forced K = 1 at few lanes: the serial loop
+    (8, 512, 32, 64),  # corpus chunking, Bc = 8
+])
+def test_words_kernel_shapes_match_plains(dev, bits, B, L, K):
+    prof, words, state = _words_case(bits, B, L, B + L, dev)
+    _chunked_equals_plains(prof, words, state, bits, K)
+
+
+def test_words_kernel_grid_smaller_than_items(dev):
+    """More work items than the persistent grid has threads: threads take
+    several items, every round."""
+    cdw = cuda_decode_words
+    bits, B, L, K = 4, 300, 8191, 37
+    items = cdw.word_chunks(B, K)[0] * L
+    ctas = cdw.persistent_ctas(items, bits=bits, with_output=True, device=dev)
+    assert ctas * cdw.CTA_THREADS < items
+    prof, words, state = _words_case(bits, B, L, 7, dev)
+    _chunked_equals_plains(prof, words, state, bits, K)
+
+
+def test_words_kernel_default_chunks(dev):
+    """The wrapper's own K at a corpus-like shape (32 lanes) equals
+    pick_word_chunks and decodes like the sequential plain version."""
+    cdw = cuda_decode_words
+    bits, B, L = 8, 1024, 32
+    prof, words, state = _words_case(bits, B, L, 11, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    K = cdw.pick_word_chunks(B, L, sms)
+    assert K > 1
+    pcm, end, rounds = cdw.fused_decode_words_chunked(prof, words, state,
+                                                      bits=bits)
+    ppcm, pend, prounds = cdw.fused_decode_words_chunked_plain(
+        prof, words, state, bits=bits, chunks=K)
+    torch.cuda.synchronize()
+    assert torch.equal(pcm, ppcm) and torch.equal(end, pend)
+    assert int(rounds.item()) == prounds
+
+
+def test_words_kernel_refused_launch_raises(dev, monkeypatch):
+    """A cooperative grid larger than the card holds at once is refused,
+    and the wrapper raises; nothing falls back."""
+    cdw = cuda_decode_words
+    prof, words, state = _words_case(8, 64, 4096, 3, dev)
+    fit = cdw.persistent_ctas(1 << 40, bits=8, with_output=True, device=dev)
+    monkeypatch.setattr(cdw, "persistent_ctas", lambda *a, **k: fit + 1)
+    before = cdw.LAUNCHES
+    with pytest.raises(RuntimeError, match="bjxa_decode_words"):
+        cdw.fused_decode_words_chunked(prof, words, state, bits=8, chunks=4)
+    assert cdw.LAUNCHES == before
+
+
 def test_decode_corpus_card_matches_cpu(dev, tmp_path):
     src = tmp_path / "src"
     src.mkdir()
