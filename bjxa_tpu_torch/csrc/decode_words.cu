@@ -21,20 +21,11 @@
 // neighbouring lanes of one chunk, so its loads and stores stay coalesced,
 // the inputs are read in place and the PCM lands in its final [B, 32, L]
 // place.  The chunks' entry states are solved exactly inside ONE
-// cooperative launch, the iteration of ops/decode.py:_fixpoint_states:
-// chunk 0 starts at state[l], the others at zeros; each round runs every
-// item states-only (the TPU's _words_states_kernel) and makes chunk k-1's
-// end chunk k's next start; a grid-wide flag says whether any start
-// changed.  After r rounds chunks 0..r are exact, so the loop stops when
-// nothing changed or after K rounds.  Then one pass with output
-// (_decode_words_kernel) from the solved starts; `end` is the last chunk's.
-// K = 1 runs no round at all (the wrapper picks it where the lanes alone
-// fill the card).  Threads take items grid-stride over a persistent grid
-// sized from the occupancy, so any K fits; idle threads reach every
-// grid.sync().  Starts live in scratch[2][K][L][2] (one buffer per round
-// parity, read through L2 with __ldcg since other SMs wrote them); the
-// changed flag of round r is ctrl[r & 1] = r + 1, so a round needs one grid
-// sync and no flag is ever reset; ctrl[2] receives the round count.
+// cooperative launch by the schedule of chunk_fixpoint.cuh: rounds of the
+// states-only decode (the TPU's _words_states_kernel) until no chunk's
+// start changes, then one pass with output (_decode_words_kernel) from the
+// solved starts.  K = 1 runs no round at all (the wrapper picks it where
+// the lanes alone fill the card).
 //
 // Loads in flight: each thread stages its own BITS words of the next
 // kStages - 1 blocks through a ring in shared memory with cp.async (4-byte
@@ -46,15 +37,13 @@
 // Bound: memory bytes at the headline (bits/8 + 1/32 bytes read and 2
 // written per sample, ~203 MB a launch at B = 64, L = 32768, 8-bit); on a
 // corpus batch the rounds re-read the input, (rounds + 1) reads in all.
-#include <cooperative_groups.h>
 #include <cuda_pipeline_primitives.h>
 
 #include "adpcm.cuh"
+#include "chunk_fixpoint.cuh"
 
 namespace bjxa {
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int kStages = 4;  // blocks of words a thread has in flight
 
@@ -121,76 +110,15 @@ decode_words_kernel(const uint8_t* __restrict__ prof,
                     int16_t* __restrict__ pcm, int32_t* __restrict__ end,
                     int32_t* scratch, int B, int L, int K, int Bc) {
   __shared__ uint32_t ring[kStages][BITS][kThreads];
-  const long long items = static_cast<long long>(K) * L;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  uint32_t(*slots)[BITS][kThreads] = ring;
   const size_t lanes = static_cast<size_t>(L);
-  int32_t* ctrl = scratch;  // changed flags of the two parities, rounds
-  int32_t* starts = scratch + 4;  // parity p at starts + p * 2 * items
-  int cur = 0;
-  int rounds = 0;
-  if (K > 1) {
-    cg::grid_group grid = cg::this_grid();
-    if (first == 0) {
-      ctrl[0] = 0;
-      ctrl[1] = 0;
-    }
-    for (long long i = first; i < items; i += stride) {
-      const bool anchor = i < L;
-      starts[2 * i] = anchor ? state[2 * i] : 0;
-      starts[2 * i + 1] = anchor ? state[2 * i + 1] : 0;
-    }
-    grid.sync();
-    bool changed = true;
-    while (changed && rounds < K) {
-      const int32_t* in = starts + cur * 2 * items;
-      int32_t* nxt = starts + (cur ^ 1) * 2 * items;
-      for (long long i = first; i < items; i += stride) {
-        const long long k = i / L;
-        const long long l = i - k * L;
-        int32_t p0 = __ldcg(in + 2 * i);
-        int32_t p1 = __ldcg(in + 2 * i + 1);
-        if (k == 0) {  // chunk 0 stays anchored
-          nxt[2 * i] = p0;
-          nxt[2 * i + 1] = p1;
-        }
-        const long long b0 = k * Bc;
-        const int n = static_cast<int>(min(static_cast<long long>(Bc),
-                                           B - b0));
-        run_chunk<BITS, false>(prof, words, nullptr, lanes, l, b0, n, ring,
-                               p0, p1);
-        if (k + 1 < K) {
-          const long long j = i + L;
-          if (__ldcg(in + 2 * j) != p0 || __ldcg(in + 2 * j + 1) != p1) {
-            ctrl[rounds & 1] = rounds + 1;
-          }
-          nxt[2 * j] = p0;
-          nxt[2 * j + 1] = p1;
-        }
-      }
-      grid.sync();
-      ++rounds;
-      changed = __ldcg(ctrl + ((rounds - 1) & 1)) == rounds;
-      cur ^= 1;
-    }
-  }
-  const int32_t* in = starts + cur * 2 * items;
-  for (long long i = first; i < items; i += stride) {
-    const long long k = i / L;
-    const long long l = i - k * L;
-    int32_t p0 = K > 1 ? __ldcg(in + 2 * i) : state[2 * l];
-    int32_t p1 = K > 1 ? __ldcg(in + 2 * i + 1) : state[2 * l + 1];
-    const long long b0 = k * Bc;
-    const int n = static_cast<int>(min(static_cast<long long>(Bc), B - b0));
-    run_chunk<BITS, WITH_OUTPUT>(prof, words, pcm, lanes, l, b0, n, ring,
-                                 p0, p1);
-    if (k == K - 1) {
-      end[2 * l] = p0;
-      end[2 * l + 1] = p1;
-    }
-  }
-  if (first == 0) ctrl[2] = rounds;
+  chunk_fixpoint<WITH_OUTPUT>(
+      state, end, scratch, B, L, K, Bc,
+      [=](auto out, long long l, long long b0, int n, int32_t& p0,
+          int32_t& p1) {
+        run_chunk<BITS, decltype(out)::value>(prof, words, pcm, lanes, l, b0,
+                                              n, slots, p0, p1);
+      });
 }
 
 template <int BITS, bool WITH_OUTPUT>
@@ -215,19 +143,8 @@ const void* pick_kernel(int bits, bool with_output) {
 // grid is this times the SM count at most), or minus a CUDA error code.
 extern "C" int bjxa_decode_words_occupancy(int bits, int with_output,
                                            int device) {
-  const void* fn = bjxa::pick_kernel(bits, with_output != 0);
-  if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  int coop = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  if (!coop) return -static_cast<int>(cudaErrorNotSupported);
-  int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn,
-                                                      bjxa::kThreads, 0);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return ctas;
+  return bjxa::coop_occupancy(bjxa::pick_kernel(bits, with_output != 0),
+                              device);
 }
 
 // One cooperative launch of `ctas` CTAs on `stream`, without synchronising:
@@ -235,38 +152,21 @@ extern "C" int bjxa_decode_words_occupancy(int bits, int with_output,
 // scratch int32[4 + 4*K*L] (ctrl[0..3], then the starts of both parities;
 // 4 elements are enough when K = 1), ctrl[2] receives the round count.
 // A refused launch (too many CTAs to be co-resident, no cooperative launch
-// on the device) returns its error; so does cudaGetLastError() after it.
+// on the device) returns its error.
 extern "C" int bjxa_decode_words(const void* prof, const void* words,
                                  const void* state, void* pcm, void* end,
                                  void* scratch, int B, int L, int K, int Bc,
                                  int bits, int with_output, int ctas,
                                  int device, void* stream) {
-  const bool chunks_ok =
-      B == 0 ? (K == 1 && Bc == 0)
-             : (K >= 1 && Bc >= 1 && static_cast<long long>(K) * Bc >= B &&
-                static_cast<long long>(K - 1) * Bc < B);
-  if (B < 0 || L <= 0 || !chunks_ok || ctas <= 0 || scratch == nullptr ||
-      (with_output && B > 0 && pcm == nullptr)) {
+  if (L <= 0 || !bjxa::chunks_ok(B, K, Bc) || ctas <= 0 ||
+      scratch == nullptr || (with_output && B > 0 && pcm == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const void* fn = bjxa::pick_kernel(bits, with_output != 0);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int coop = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
   auto* out = static_cast<int16_t*>(pcm);
   auto* e = static_cast<int32_t*>(end);
   auto* sc = static_cast<int32_t*>(scratch);
   void* args[] = {const_cast<void**>(&prof), const_cast<void**>(&words),
                   const_cast<void**>(&state), &out, &e, &sc, &B, &L, &K, &Bc};
-  err = cudaLaunchCooperativeKernel(fn, dim3(ctas), dim3(bjxa::kThreads), args,
-                                    0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear the launch error before returning it
-    return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return bjxa::coop_launch(bjxa::pick_kernel(bits, with_output != 0), args,
+                           ctas, device, stream);
 }

@@ -44,6 +44,12 @@ SIGNATURES = {
                           _I, _P),
     # bits, with_output, device
     "bjxa_decode_words_occupancy": (_I, _I, _I),
+    # payload, state, frames, end, scratch, B, C, K, Bc, bits, with_output,
+    # ctas, device, stream
+    "bjxa_decode_stream": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P),
+    # bits, channels, with_output, device
+    "bjxa_decode_stream_occupancy": (_I, _I, _I, _I),
     # samples, k0, k1, shift, state, pcm, end, B, L, with_output, device,
     # stream
     "bjxa_filter_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -26,53 +26,37 @@ one.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from bjxa_tpu_torch.ops.cuda_decode import fused_decode_lanes_plain
-from bjxa_tpu_torch.ops.decode import (
+from bjxa_tpu_torch.ops.chunking import (
+    CTA_THREADS,
     MIN_CHUNK_BLOCKS,
-    _fixpoint_states,
-    words_to_blocks,
+    TARGET_LANES_PER_SM,
+    word_chunks,
 )
-from bjxa_tpu_torch.ops.tables import BLOCK_SAMPLES
+from bjxa_tpu_torch.ops.cuda_decode import (
+    chunked_lanes_plain,
+    fused_decode_lanes_plain,
+    grid_ctas,
+)
+from bjxa_tpu_torch.ops.decode import words_to_blocks
 
 #: Launches of the words kernel in this process (plain runs never count).
 LAUNCHES = 0
 
-#: Threads of a CTA (``kThreads`` in ``csrc/adpcm.cuh``).
-CTA_THREADS = 128
 #: Lanes an SM needs for the lanes alone to fill the card: one CTA's worth.
 #: At and above it K = 1, since every extra round re-reads the input.
+#: Below it each SM gets
+#: :data:`~bjxa_tpu_torch.ops.chunking.TARGET_LANES_PER_SM` work items.
 FILL_LANES_PER_SM = CTA_THREADS
-#: Work items an SM is given below the fill line: K is the least that gives
-#: every SM this many (10 warps), keeping
-#: :data:`~bjxa_tpu_torch.ops.decode.MIN_CHUNK_BLOCKS` blocks a chunk.  Ten
-#: warps an SM keep the loads in flight (the headline runs near its
-#: measured bound at 8), and fewer, longer chunks settle in fewer rounds,
-#: each of which re-reads the input: on a corpus batch K = B/16 beat B/8
-#: and B/32 on the H100 (``PERF.md``, section 6).
-TARGET_LANES_PER_SM = 320
-
-
-def word_chunks(B: int, chunks: int) -> tuple[int, int]:
-    """``(K, Bc)`` for ``B`` blocks asked to split into ``chunks``: Bc =
-    ceil(B / chunks), and K = ceil(B / Bc), so that no chunk is empty and
-    only the last one may be short.  ``B = 0`` gives ``(1, 0)``."""
-    if chunks < 1:
-        raise ValueError(f"word_chunks: {chunks} chunks")
-    if B == 0:
-        return 1, 0
-    Bc = -(-B // min(chunks, B))
-    return -(-B // Bc), Bc
 
 
 def pick_word_chunks(B: int, L: int, sm_count: int) -> int:
     """The chunk count the wrapper launches with, for ``B`` blocks of ``L``
     lanes on a card of ``sm_count`` SMs: 1 where ``L`` alone fills the card
     (:data:`FILL_LANES_PER_SM`), else the least K that gives each SM
-    :data:`TARGET_LANES_PER_SM` work items, at most ``B //
+    :data:`~bjxa_tpu_torch.ops.chunking.TARGET_LANES_PER_SM` work items, at
+    most ``B //
     MIN_CHUNK_BLOCKS``, as :func:`word_chunks` leaves it."""
     if L == 0 or L >= sm_count * FILL_LANES_PER_SM:
         return 1
@@ -109,77 +93,28 @@ def fused_decode_words_chunked_plain(
     chunks: int,
     with_output: bool = True,
 ):
-    """Plain PyTorch version of the kernel's schedule: the blocks cut into
-    :func:`word_chunks` ``(K, Bc)``, the chunks' starts iterated by
-    :func:`~bjxa_tpu_torch.ops.decode._fixpoint_states` over the
-    sequential plain decode of all ``K*L`` chunk lanes at once (lane
-    ``k*L + l``, the kernel's item order; the short last chunk padded with
-    profile-0 blocks whose output is dropped), then one run with output.
-    K = 1 runs no round.  On any device; it never launches a kernel.
+    """Plain PyTorch version of the kernel's schedule: the raw blocks
+    reassembled (:func:`~bjxa_tpu_torch.ops.decode.words_to_blocks`), then
+    :func:`~bjxa_tpu_torch.ops.cuda_decode.chunked_lanes_plain` at
+    :func:`word_chunks` ``(K, Bc)`` (the chunks' starts solved by the exact
+    fixed point, then one run with output; K = 1 runs no round).  On any
+    device; it never launches a kernel.
 
     Returns ``(pcm int16[B, 32, L] | None, end int32[L, 2], rounds)``, the
     same as :func:`fused_decode_words_chunked` with ``rounds`` an int.
     """
-    B, W, L = words.shape
-    K, Bc = word_chunks(B, chunks)
-    if K == 1:
-        pcm, end = fused_decode_words_plain(
-            prof, words, state, bits=bits, with_output=with_output
-        )
-        return pcm, end, 0
-    pad = K * Bc - B
-    cprof = torch.cat([prof, prof.new_zeros((pad, L))])
-    cprof = cprof.reshape(K, Bc, L).permute(1, 0, 2).reshape(Bc, K * L)
-    cwords = torch.cat([words, words.new_zeros((pad, W, L))])
-    cwords = cwords.reshape(K, Bc, W, L).permute(1, 2, 0, 3).reshape(
-        Bc, W, K * L
+    return chunked_lanes_plain(
+        words_to_blocks(prof, words, bits=bits), state, bits=bits,
+        chunks=chunks, with_output=with_output,
     )
-
-    def run(states_flat, wo):
-        return fused_decode_words_plain(
-            cprof.contiguous(), cwords.contiguous(), states_flat, bits=bits,
-            with_output=wo,
-        )
-
-    starts, rounds = _fixpoint_states(run, state.to(torch.int32), K, L,
-                                      max_iters=K)
-    last = (K - 1) * Bc
-    _, end = fused_decode_words_plain(
-        prof[last:], words[last:], starts[K - 1].contiguous(), bits=bits,
-        with_output=False,
-    )
-    if not with_output:
-        return None, end, rounds
-    pcm_l, _ = run(starts.reshape(K * L, 2), True)
-    pcm = (
-        pcm_l.reshape(Bc, BLOCK_SAMPLES, K, L)
-        .permute(2, 0, 1, 3)
-        .reshape(K * Bc, BLOCK_SAMPLES, L)[:B]
-    )
-    return pcm, end, rounds
-
-
-@functools.cache
-def _ctas_per_sm(bits: int, with_output: bool, device: int) -> int:
-    from bjxa_tpu_torch.ops._build import check_launch, library
-
-    n = library().bjxa_decode_words_occupancy(bits, int(with_output), device)
-    check_launch(max(-n, 0), "bjxa_decode_words_occupancy")
-    if n == 0:
-        raise RuntimeError("bjxa_decode_words: no CTA fits on an SM")
-    return n
 
 
 def persistent_ctas(items: int, *, bits: int, with_output: bool,
                     device: torch.device) -> int:
     """CTAs of the cooperative launch over ``items`` work items: enough for
     one item a thread, at most what the card holds at once."""
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    fit = _ctas_per_sm(bits, with_output, index) * sms
-    return max(1, min(-(-items // CTA_THREADS), fit))
+    return grid_ctas(items, "bjxa_decode_words_occupancy", bits,
+                     int(with_output), device=device)
 
 
 def _check(prof, words, state, bits):

@@ -12,14 +12,21 @@ whole-file pipelines share the lane-vectorized filter:
   iterated to a fixed point.  Chunk 0 is anchored at the true header
   state and each round propagates exact end states one chunk forward, so
   the fixed point is reached in at most K rounds and is *bit-exact*;
-  typical audio converges in 2-4 rounds.  On a CUDA device every round
-  is one launch of the decode kernel
-  (:mod:`bjxa_tpu_torch.ops.cuda_decode`).
+  typical audio converges in 2-4 rounds.  Every round is one run of the
+  lane-major decode (:func:`~bjxa_tpu_torch.ops.cuda_decode.
+  fused_decode_lanes`, a launch of its own on a CUDA device) and one host
+  sync.
 
 Hosts call :func:`decode_bytes`, which picks a pipeline, checks profile
 validity (EPROTO taxonomy) and trims the padded tail; or
 :func:`iter_decode_segments`, which streams a file of any size through the
 same pipelines in fixed-size block segments at O(segment) host memory.
+On the CPU both take the pipelines above, as :mod:`bjxa_tpu` does.  On a
+CUDA device a long stream takes neither: its payload goes to the card as
+the file holds it, and ONE launch of the stream kernel
+(:func:`~bjxa_tpu_torch.ops.cuda_decode.fused_decode_stream`) solves the
+same chunk fixed point inside the launch and writes interleaved frames,
+with no host staging, no padding and no host sync.
 
 The batch decoders (:func:`decode_batch_lanes`, :func:`decode_batch_words`,
 :func:`decode_batch_packed`) run many independent streams at once, one lane
@@ -43,7 +50,11 @@ import torch
 
 from bjxa_tpu_torch.errors import BjxaInvalidState, BjxaProtocolError
 from bjxa_tpu_torch.format.xa import XAFormat
-from bjxa_tpu_torch.ops.cuda_decode import fused_decode_lanes
+from bjxa_tpu_torch.ops.chunking import MIN_CHUNK_BLOCKS, fixpoint_states
+from bjxa_tpu_torch.ops.cuda_decode import (
+    fused_decode_lanes,
+    fused_decode_stream,
+)
 from bjxa_tpu_torch.ops.filter import decode_lanes
 from bjxa_tpu_torch.ops.inflate import inflate_blocks
 from bjxa_tpu_torch.ops.tables import BLOCK_SAMPLES
@@ -75,34 +86,6 @@ def decode_arrays(blocks: torch.Tensor, state: torch.Tensor, *, bits: int):
 # --------------------------------------------------------------------------
 # single file, chunk-parallel fixed point (lanes = chunks x channels)
 # --------------------------------------------------------------------------
-
-
-def _fixpoint_states(run, anchor, K: int, C: int, max_iters: int):
-    """Iterate chunk boundary states to the exact fixed point.
-
-    ``run(states_flat int32[K*C, 2], with_output) -> (pcm|None,
-    end int32[K*C, 2])`` decodes every chunk lane from the given input
-    states.  Chunk 0 is anchored at ``anchor`` (the true entry state), so
-    after i rounds chunks 0..i hold exact states; the loop exits as soon
-    as nothing changes (integer equality: exactness is certain, not
-    probabilistic).  Each round costs one host sync (the equality test).
-
-    Returns ``(converged [K, C, 2], iterations)``; the count starts at 1
-    after the first propagation, as in the JAX package.
-    """
-
-    def propagate(states):
-        _, end = run(states.reshape(K * C, 2), False)
-        return torch.cat([anchor[None], end.reshape(K, C, 2)[:-1]], dim=0)
-
-    prev = torch.zeros((K, C, 2), dtype=torch.int32, device=anchor.device)
-    prev[0] = anchor
-    states = propagate(prev)
-    iters = 1
-    while iters < max_iters and not torch.equal(states, prev):
-        prev, states = states, propagate(states)
-        iters += 1
-    return states, iters
 
 
 def _unscramble_chunks(pcm_l, B: int, K: int, C: int):
@@ -159,7 +142,7 @@ def fixpoint_lanes_core(
             blocks_t, states_flat, bits=bits, with_output=with_output
         )
 
-    states, iters = _fixpoint_states(run, anchor, K, C, max_iters=K)
+    states, iters = fixpoint_states(run, anchor, K, C, max_iters=K)
     pcm_l, _ = run(states.reshape(K * C, 2), True)
     frames = _unscramble_chunks(pcm_l, b_total, K, C)
     valid_l = (blocks_t[:, 0, :] >> 4) < 5  # [Bc, K*C]
@@ -429,7 +412,6 @@ def check_valid(valid: torch.Tensor, channels: int) -> None:
 #: enough that each chunk keeps MIN_CHUNK_BLOCKS blocks (state transients
 #: die within ~5 blocks, so the fixed point converges in a few rounds).
 TARGET_LANES = 8192
-MIN_CHUNK_BLOCKS = 8
 MAX_CHUNKS = 4096
 
 
@@ -453,15 +435,19 @@ def _decode_payload(payload, fmt: XAFormat, state: torch.Tensor,
     """Decode ``fmt.blocks`` blocks of ``payload`` on ``device`` from the
     entry ``state`` (``int32[C, 2]``, on ``device``).
 
-    Streams of more than 64 blocks take the chunk-parallel fixed point over
-    a bucketed block count (:func:`pad_bucket`; dummy profile-0 blocks pad
-    the tail); shorter ones, and any whose chunk count falls to 1, decode
-    sequentially and unpadded.  Returns ``(frames int16[>=blocks*32, C],
-    valid bool[>=blocks, C])`` on ``device``.
+    Streams of at most 64 blocks, and any whose chunk count
+    (:func:`pick_chunks` over the bucketed count :func:`pad_bucket`) falls
+    to 1, decode sequentially and unpadded (:func:`decode_arrays`).  Longer
+    ones take the chunk-parallel fixed point: on the CPU over the bucketed
+    block count (dummy profile-0 blocks pad the tail), elsewhere through
+    :func:`_decode_payload_stream`.  Returns ``(frames int16[>=blocks*32,
+    C], valid bool[>=blocks, C])`` on ``device``.
     """
     B = fmt.blocks
     Bp = B if B <= 64 else pad_bucket(B)
     num_chunks = pick_chunks(Bp, fmt.channels)
+    if num_chunks > 1 and device.type != "cpu":
+        return _decode_payload_stream(payload, fmt, state, device)
     if num_chunks > 1:
         blocks_t = chunk_lanes_from_bytes(payload, fmt, num_chunks, Bp)
         frames, _end, valid, _it = decode_fixpoint_lanes(
@@ -478,6 +464,48 @@ def _decode_payload(payload, fmt: XAFormat, state: torch.Tensor,
             torch.from_numpy(blocks).to(device), state, bits=fmt.bits
         )
     return frames, valid
+
+
+def stream_payload_host(payload, fmt: XAFormat) -> torch.Tensor:
+    """Host stage of :func:`_decode_payload_stream`: the payload's
+    ``blocks*C*S`` bytes as one contiguous ``uint8`` host tensor (one copy;
+    no padding, no transpose)."""
+    return torch.frombuffer(
+        bytearray(memoryview(payload)[: fmt.blocks * fmt.block_size_xa]),
+        dtype=torch.uint8,
+    )
+
+
+def stream_payload_upload(host: torch.Tensor,
+                          device: torch.device) -> torch.Tensor:
+    """H2D stage of :func:`_decode_payload_stream`: a non-blocking copy
+    to ``device``, with no host sync."""
+    # pageable memory: the copy has left the host buffer when this returns
+    return host.to(device, non_blocking=True)
+
+
+def stream_decode_on_device(pay: torch.Tensor, fmt: XAFormat,
+                            state: torch.Tensor):
+    """Device stage of :func:`_decode_payload_stream`: one launch of the
+    stream kernel on the payload ``pay`` (on the card), and the validity
+    plane read there from the profile bytes.  Returns ``(frames
+    int16[blocks*32, C], valid bool[blocks, C])``; no host sync."""
+    B, C, S = fmt.blocks, fmt.channels, fmt.block_size
+    frames, _end, _rounds = fused_decode_stream(pay, state, bits=fmt.bits,
+                                                channels=C)
+    valid = (pay.view(B, C, S)[:, :, 0] >> 4) < 5
+    return frames, valid
+
+
+def _decode_payload_stream(payload, fmt: XAFormat, state: torch.Tensor,
+                           device: torch.device):
+    """The card's long-stream branch of :func:`_decode_payload`, in three
+    stages: :func:`stream_payload_host`, :func:`stream_payload_upload` and
+    :func:`stream_decode_on_device`.  No padding, no transpose and no host
+    sync.  Returns ``(frames int16[blocks*32, C], valid bool[blocks, C])``.
+    """
+    pay = stream_payload_upload(stream_payload_host(payload, fmt), device)
+    return stream_decode_on_device(pay, fmt, state)
 
 
 def decode_bytes_validity(

@@ -15,6 +15,10 @@ Phases, one line each (any failure raises and exits nonzero):
    the words kernel's chunked schedule also against its chunked plain
    version, round counts included (ragged chunks, a slow-merging stream,
    B = 0, a persistent grid smaller than the work, K = 1, a corpus batch);
+   the stream kernel, with and without output, against its chunked plain
+   version
+   (rounds included) and its sequential one (bits 4/6/8 x 1/2 channels at a
+   prime block count, B = 0, a slow-merging stream, the 5-minute shape);
 3. known answers: the saturation vector's WAV SHA-1 (and the reference's
    golden fixtures when ``BJXA_REFERENCE_DIR`` points at them), the
    encoder's ranking-contract vectors, and an encode -> decode round trip
@@ -27,7 +31,10 @@ Phases, one line each (any failure raises and exits nonzero):
    would take too long, the card's per-file path, which the CPU checks on a
    few files, and for the 5-minute encode the card's own bytes, whose first
    100 s the CPU checks); the launch counters show the in-process decode, encode and
-   corpus runs went through every kernel of their path, and the encode's
+   corpus runs went through every kernel of their path (a long whole-file
+   decode is ONE stream-kernel launch, a segmented one a launch a segment,
+   an oversized corpus file the same), the stream kernel's rounds equal
+   its chunked plain version's at the card's K, and the encode's
    fixed point took as many rounds on the card as on the CPU; the encode
    corpus's one search launch gives the CLI's XA bytes and equals the plain
    search on the card over the first and last blocks of its batch; the
@@ -36,7 +43,10 @@ Phases, one line each (any failure raises and exits nonzero):
    fails like the CPU on an invalid profile and a truncated body; the
    measurement scripts run in-process with their launches counted;
 5. timings on the card (CUDA events, median of repeats after warm-up), the
-   per-stage split of each main path, the encoder's sequential search
+   per-stage split of each main path, the stream kernel at the 5-minute
+   stream (with and without output, a sweep of chunk sizes, its share of
+   the measured
+   load/store bound), the encoder's sequential search
    against its fixed point, the words kernel against the lanes kernel, over
    a sweep of chunk counts, and the search kernel alone on a corpus batch,
    the words kernel's share of the measured load/store bound at the
@@ -82,7 +92,7 @@ FILTER_SHAPES = ((64, 2), (13, 1), (104, 8192))
 
 # Streams through the CLI: name -> (bits, channels, samples).  The first is
 # the full-size main-path file: 13,230,000 samples per channel, 413,438
-# blocks, ~20.7 MB of XA and ~52.9 MB of PCM (whole-file fixed point).
+# blocks, ~20.7 MB of XA and ~52.9 MB of PCM (one stream-kernel launch).
 STREAMS = {
     "stereo6_5min": (6, 2, 44100 * 300),
     "mono4_60s": (4, 1, 44100 * 60),
@@ -128,6 +138,19 @@ MID_STREAM = (6, 2, 44100 * 20)
 # A WAV whose body stops mid-frame, mid-block: (bits, channels, frames, kept
 # body bytes).
 CUT_WAV = (6, 2, 44100 * 20, 1234567)
+
+# Stream-kernel checks, (B, channels, bits, K, stream): K forced, or None
+# for the wrapper's own pick_stream_chunks (at B = 97: 13 chunks of 8, the
+# last of 1 block; K = 7 leaves a last chunk of 13); "slow" is the
+# slow-merging stream at K = B; the last is the 5-minute stream's shape.
+STREAM_CHECKS = tuple(
+    (97, channels, bits, chunks, "random")
+    for bits in (4, 6, 8) for channels in (1, 2) for chunks in (None, 7)
+) + ((0, 2, 6, None, "random"), (0, 1, 8, 3, "random"),
+     (23, 2, 6, 23, "slow"), (23, 1, 4, 23, "slow"),
+     (413438, 2, 6, None, "random"))
+# Chunk sizes (blocks) timed at the 5-minute stream besides the wrapper's.
+STREAM_BC_SWEEP = (8, 16, 32)
 
 # Words-kernel checks, (B, L, bits): the old bench.py headline first (16,384
 # stereo 8-bit files x 64 blocks), then ragged shapes.
@@ -210,7 +233,7 @@ ENCODE_OPS_PER_CANDIDATE_SAMPLE = 15
 
 #: The kernels of the port, by the name of their ``csrc`` source.
 KERNELS = ("decode_lanes", "filter_lanes", "encode_search", "decode_words",
-           "decode_variants", "loadstore_bound", "alu_mix")
+           "decode_variants", "loadstore_bound", "alu_mix", "decode_stream")
 
 
 def sha1(data: bytes) -> str:
@@ -834,6 +857,91 @@ def encode_timings(torch, dev, gpu: str, enc: dict) -> tuple:
           auto_s=f"{statistics.median(auto):.6f}",
           auto_runs=[f"{s:.6f}" for s in auto])
     return k, p
+
+
+def stream_case(rng, B: int, channels: int, bits: int, slow: bool = False):
+    """Seeded stream-kernel inputs in the file's byte layout: ``(payload
+    uint8[B*C*S], state int32[C, 2])``, profile factors 0-7 (5 and up
+    invalid) and random payload bytes, or (``slow``) the slow-merging
+    stream (factor 4, range 12, payload bytes 0x00, 0x11, 0xEE or 0xFF)."""
+    S = 4 * bits + 1
+    raw = rng.integers(0, 256, size=(B, channels, S), dtype=np.uint8)
+    raw[:, :, 0] = (rng.integers(0, 8, size=(B, channels)) << 4
+                    | rng.integers(0, 16, size=(B, channels))).astype(np.uint8)
+    if slow:
+        raw[:, :, 1:] = rng.choice(np.array([0x00, 0x11, 0xEE, 0xFF],
+                                            np.uint8), size=(B, channels, S - 1))
+        raw[:, :, 0] = 4 << 4 | 12
+    state = rng.integers(-(2**15), 2**15, size=(channels, 2)).astype(np.int32)
+    return raw.reshape(-1), state
+
+
+def stream_equals_plains(torch, payload, state, bits: int, channels: int,
+                         chunks, sequential: bool) -> tuple:
+    """The stream kernel at ``chunks`` (None: the wrapper's own K), with
+    output and states only, against its chunked plain
+    version on the same tensors (frames, end state and rounds) and, where
+    ``sequential``, its sequential plain version.  Returns ``(max |err|,
+    rounds, rounds states-only, K, Bc)``; raises on any difference."""
+    from bjxa_tpu_torch.ops import cuda_decode as cd
+
+    B = payload.numel() // (channels * (4 * bits + 1))
+    sms = torch.cuda.get_device_properties(payload.device).multi_processor_count
+    K, Bc = (cd.word_chunks(B, chunks) if chunks is not None
+             else cd.pick_stream_chunks(B, channels, sms))
+    worst, got = 0, {}
+    for wo in (True, False):
+        frames, end, rounds = cd.fused_decode_stream(
+            payload, state, bits=bits, channels=channels, with_output=wo,
+            chunks=chunks)
+        pframes, pend, prounds = cd.fused_decode_stream_chunked_plain(
+            payload, state, bits=bits, channels=channels, chunks=K,
+            with_output=wo)
+        torch.cuda.synchronize()
+        e = exact_err(end, pend)
+        if wo:
+            e = max(e, exact_err(frames, pframes))
+        elif frames is not None:
+            raise AssertionError("states-only run returned frames")
+        if sequential:
+            sframes, send = cd.fused_decode_stream_plain(
+                payload, state, bits=bits, channels=channels, with_output=wo)
+            torch.cuda.synchronize()
+            e = max(e, exact_err(end, send))
+            if wo:
+                e = max(e, exact_err(frames, sframes))
+        got[wo] = int(rounds.item())
+        if got[wo] != prounds:
+            raise AssertionError(
+                f"stream kernel at B={B}, C={channels}, K={K}: {got[wo]}"
+                f" rounds, the chunked plain version {prounds}")
+        worst = max(worst, e)
+    return worst, got[True], got[False], K, Bc
+
+
+def check_stream_kernel(torch, dev, rng) -> int:
+    """Phase 2 for the stream kernel (``STREAM_CHECKS``).  Returns the max
+    |kernel - plain|."""
+    from bjxa_tpu_torch.ops import cuda_decode as cd
+
+    worst = 0
+    for B, channels, bits, chunks, stream in STREAM_CHECKS:
+        payload, state = (torch.from_numpy(a).to(dev) for a in stream_case(
+            rng, B, channels, bits, slow=stream == "slow"))
+        sequential = B <= 2048  # the sequential plain version: B*32 steps
+        e, rounds, rounds_s, K, Bc = stream_equals_plains(
+            torch, payload, state, bits, channels, chunks, sequential)
+        if stream == "slow" and not 2 < rounds <= K:
+            raise AssertionError(f"slow-merging stream: {rounds} rounds")
+        worst = max(worst, e)
+        phase(2, "stream_equal_plain", shape=f"B={B},C={channels},bits={bits}",
+              stream=stream, K=K, Bc=Bc, forced=chunks is not None,
+              rounds=rounds, rounds_states_only=rounds_s, items=K * channels,
+              grid_threads=cd.CTA_THREADS * cd.stream_ctas(
+                  K * channels, bits=bits, channels=channels,
+                  with_output=True, device=dev),
+              sequential_checked=sequential)
+    return worst
 
 
 def words_case(rng, B: int, L: int, bits: int):
@@ -1531,15 +1639,17 @@ def segmented_counted(torch, dev, xa: bytes, whole_wav: bytes, wav: bytes,
                       whole_xa: bytes) -> dict:
     """Phase 4: the stream API in-process with its launches counted: the
     5-minute streams through ``decode_xa_stream`` and ``encode_wav_stream``
-    in 65,536-block segments, the CLI's default."""
+    in 65,536-block segments, the CLI's default: one stream-kernel launch a
+    decode segment, no launch of the lanes kernel."""
     from bjxa_tpu_torch import decode_xa_stream, encode_wav_stream
     from bjxa_tpu_torch.ops import cuda_decode, cuda_encode
 
-    cuda_decode.LAUNCHES = cuda_encode.LAUNCHES = 0
+    cuda_decode.LAUNCHES = cuda_decode.STREAM_LAUNCHES = 0
+    cuda_encode.LAUNCHES = 0
     out = io.BytesIO()
     fmt = decode_xa_stream(io.BytesIO(xa), out, device=dev,
                            segment_blocks=SEGMENT_BLOCKS)
-    decode_launches = cuda_decode.LAUNCHES
+    decode_launches = cuda_decode.STREAM_LAUNCHES
     if out.getvalue() != whole_wav:
         raise AssertionError("decode_xa_stream WAV != whole-file WAV")
     out = io.BytesIO()
@@ -1549,13 +1659,107 @@ def segmented_counted(torch, dev, xa: bytes, whole_wav: bytes, wav: bytes,
     if out.getvalue() != whole_xa:
         raise AssertionError("encode_wav_stream XA != whole-file XA")
     segments = -(-fmt.blocks // SEGMENT_BLOCKS)
-    if decode_launches < 2 * segments or encode_launches < segments:
+    if (decode_launches != segments or cuda_decode.LAUNCHES
+            or encode_launches < segments):
         raise AssertionError(
-            f"segmented path: {decode_launches} decode and {encode_launches}"
+            f"segmented path: {decode_launches} stream-kernel,"
+            f" {cuda_decode.LAUNCHES} lanes-kernel and {encode_launches}"
             f" search launches over {segments} segments")
     phase(4, "segmented_main_path_launches", segments=segments,
-          decode_lanes=decode_launches, encode_search=encode_launches)
-    return {"decode_lanes": decode_launches, "encode_search": encode_launches}
+          decode_stream=decode_launches, decode_lanes=cuda_decode.LAUNCHES,
+          encode_search=encode_launches)
+    return {"decode_stream": decode_launches,
+            "encode_search": encode_launches}
+
+
+def oversized_corpus_counted(torch, dev, images: dict, wavs: dict) -> int:
+    """Phase 4: ``decode_corpus`` in-process over the 5-minute stream, made
+    an oversized file by a lowered ``BJXA_SEGMENT_THRESHOLD``, and the
+    23-block stream: the CPU's WAVs, one stream-kernel launch a segment of
+    the big file, one words-kernel launch for the short file's batch.
+    Returns the stream-kernel launches."""
+    from bjxa_tpu_torch import decode_corpus, parse_xa_header
+    from bjxa_tpu_torch.ops import cuda_decode, cuda_decode_words
+
+    with tempfile.TemporaryDirectory(prefix="bjxa_smoke_over_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "src").mkdir()
+        for name, img in images.items():
+            (tmp / "src" / f"{name}.xa").write_bytes(img)
+        cuda_decode.LAUNCHES = cuda_decode.STREAM_LAUNCHES = 0
+        cuda_decode_words.LAUNCHES = 0
+        os.environ["BJXA_SEGMENT_THRESHOLD"] = str(1 << 20)
+        try:
+            run = decode_corpus(tmp / "src", tmp / "out", device=dev)
+        finally:
+            del os.environ["BJXA_SEGMENT_THRESHOLD"]
+        if run.converted != len(images) or run.failed:
+            raise AssertionError(f"oversized corpus: {run.converted}"
+                                 f" converted, {run.failed}")
+        for name, want in wavs.items():
+            if (tmp / "out" / f"{name}.wav").read_bytes() != want:
+                raise AssertionError(f"oversized corpus {name}: WAV != CPU")
+    segments = -(-parse_xa_header(images["big"]).blocks // SEGMENT_BLOCKS)
+    launches = cuda_decode.STREAM_LAUNCHES
+    if (launches != segments or cuda_decode.LAUNCHES
+            or cuda_decode_words.LAUNCHES != 1):
+        raise AssertionError(
+            f"oversized corpus: {launches} stream-kernel launches over"
+            f" {segments} segments, {cuda_decode.LAUNCHES} lanes-kernel and"
+            f" {cuda_decode_words.LAUNCHES} words-kernel launches")
+    phase(4, "corpus_oversized_launches", files=len(images),
+          segments=segments, decode_stream=launches,
+          decode_words=cuda_decode_words.LAUNCHES,
+          decode_lanes=cuda_decode.LAUNCHES,
+          segmented_ms=f"{run.counters.stage_ms['segmented']:.3f}",
+          equals_cpu=True)
+    return launches
+
+
+def stream_timings(torch, dev, gpu: str, payload, state, fmt) -> dict:
+    """Phase 5 for the stream kernel at the 5-minute stream: with output
+    and states only, against its chunked plain version and its byte bound,
+    then a sweep of chunk sizes, each with its round count.
+    Returns what the summary needs."""
+    from bjxa_tpu_torch.benchmarks.roofline_bound import words_traffic
+    from bjxa_tpu_torch.ops import cuda_decode as cd
+
+    B, C, bits = fmt.blocks, fmt.channels, fmt.bits
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    K, Bc = cd.pick_stream_chunks(B, C, sms)
+
+    def run(wo=True, chunks=None):
+        return cd.fused_decode_stream(payload, state, bits=bits, channels=C,
+                                      with_output=wo, chunks=chunks)
+
+    rounds = int(run()[2].item())
+    ms = {name: cuda_ms(torch, lambda: run(**kw), inner=20)
+          for name, kw in (("output", {}), ("states_only", {"wo": False}))}
+    plain = cuda_ms(torch, lambda: cd.fused_decode_stream_chunked_plain(
+        payload, state, bits=bits, channels=C, chunks=K), reps=3)
+    moved = words_traffic(B, C, bits)
+    b_ms, b_by = bound(moved, B * 32 * C * DECODE_OPS_PER_SAMPLE)
+    phase(5, "time_decode_stream", gpu=repr(gpu),
+          shape=f"B={B},C={C},bits={bits}", K=K, Bc=Bc, rounds=rounds,
+          kernel_ms=f"{ms['output']:.6f}",
+          states_only_ms=f"{ms['states_only']:.6f}",
+          plain_ms=f"{plain:.6f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+          share_of_bound=f"{b_ms / ms['output']:.4f}")
+    sweep = {}
+    for want in sorted(set(STREAM_BC_SWEEP + (Bc,))):
+        chunks = -(-B // want)
+        k, bc = cd.word_chunks(B, chunks)
+        r = int(run(chunks=chunks)[2].item())
+        t = cuda_ms(torch, lambda: run(chunks=chunks), inner=20)
+        ts = cuda_ms(torch, lambda: run(wo=False, chunks=chunks), inner=20)
+        sweep[bc] = {"K": k, "rounds": r, "ms": t, "states_only_ms": ts}
+        phase(5, "time_decode_stream_chunks", gpu=repr(gpu), K=k, Bc=bc,
+              rounds=r, kernel_ms=f"{t:.6f}", states_only_ms=f"{ts:.6f}",
+              default=bc == Bc)
+    return {"ms": ms["output"], "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "states_only_ms": ms["states_only"],
+            "rounds": rounds, "K": K, "Bc": Bc,
+            "bytes": moved, "bc_sweep": sweep}
 
 
 def measurement_main_path(torch) -> dict:
@@ -1792,6 +1996,8 @@ def main() -> int:
     # the words kernel was added
     worst["decode_words"] = check_words_kernel(
         torch, dev, np.random.default_rng(SEED + 3))
+    worst["decode_stream"] = check_stream_kernel(
+        torch, dev, np.random.default_rng(SEED + 13))
     worst.update(check_measurement_kernels(
         torch, dev, np.random.default_rng(SEED + 11)))
     phase(2, "kernels_equal_plain", **worst)
@@ -1861,13 +2067,15 @@ def main() -> int:
               prefix_bytes=len(outs[None]), equals_cpu=True)
         segmented_cli_checks(tmp, ref["stereo6_5min"], outs[None])
 
-    # the fixed point on the card and on the CPU: same rounds, same output
+    # the lane-major fixed point (decode_fixpoint_lanes, the JAX package's
+    # twin) on the card and on the CPU: same rounds, same output
     big = images["stereo6_5min"]
     fmt = parse_xa_header(big)
     Bp = tdecode.pad_bucket(fmt.blocks)
     K = tdecode.pick_chunks(Bp, fmt.channels)
     staged = tdecode.chunk_lanes_from_bytes(big[32:], fmt, K, Bp)
     fix = {}
+    cuda_decode.LAUNCHES = 0
     for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
         frames, end, _valid, rounds = tdecode.decode_fixpoint_lanes(
             torch.from_numpy(staged).to(d),
@@ -1879,30 +2087,67 @@ def main() -> int:
             and torch.equal(fix["card"][1], fix["cpu"][1])
             and fix["card"][2] == fix["cpu"][2]):
         raise AssertionError("fixed point differs between card and CPU")
-    rounds = fix["card"][2]
+    fixpoint_lanes_launches = cuda_decode.LAUNCHES
+    if fixpoint_lanes_launches != fix["card"][2] + 1:
+        raise AssertionError(f"decode_fixpoint_lanes launched the lanes kernel"
+                             f" {fixpoint_lanes_launches} times, want rounds"
+                             f" + 1 = {fix['card'][2] + 1}")
+    phase(4, "fixpoint_lanes_card_equals_cpu", K=K, Bc=Bp // K,
+          lanes=K * fmt.channels, rounds=fix["card"][2],
+          decode_lanes=fixpoint_lanes_launches)
 
-    # the main path in-process, counted: every kernel of it must launch
+    # the stream kernel at the card's K against its chunked plain version on
+    # the CPU: same frames (the CPU's WAV), end state and rounds
+    payload_d = torch.frombuffer(bytearray(big[32:32 + fmt.data_len]),
+                                 dtype=torch.uint8).to(dev)
+    state_d = torch.from_numpy(fmt.initial_state_array()).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sK, sBc = cuda_decode.pick_stream_chunks(fmt.blocks, fmt.channels, sms)
+    frames, end, rounds_d = cuda_decode.fused_decode_stream(
+        payload_d, state_d, bits=fmt.bits, channels=fmt.channels)
+    pframes, pend, rounds = cuda_decode.fused_decode_stream_chunked_plain(
+        payload_d.cpu(), state_d.cpu(), bits=fmt.bits, channels=fmt.channels,
+        chunks=sK)
+    if int(rounds_d.item()) != rounds:
+        raise AssertionError(f"stream kernel: {int(rounds_d.item())} rounds,"
+                             f" the chunked plain version {rounds}")
+    exact_err(frames.cpu(), pframes)
+    exact_err(end.cpu(), pend)
+    if pframes[: fmt.samples].numpy().tobytes() != ref["stereo6_5min"][44:]:
+        raise AssertionError("stream kernel frames != the CPU's WAV")
+    phase(4, "stream_card_equals_chunked_plain", K=sK, Bc=sBc,
+          items=sK * fmt.channels, rounds=rounds)
+
+    # the main path in-process, counted: one stream-kernel launch for the
+    # long stream and no launch of the lanes kernel, the filter kernel for
+    # the short one
     short = images["stereo8_23blocks"]
     for mod in (cuda_decode, cuda_filter, cuda_encode):
         mod.LAUNCHES = 0
+    cuda_decode.STREAM_LAUNCHES = 0
     got_big = xa_to_wav(big, device=dev)
-    big_launches = cuda_decode.LAUNCHES
+    big_launches = (cuda_decode.STREAM_LAUNCHES, cuda_decode.LAUNCHES)
     got_short = xa_to_wav(short, device=dev)
-    launches = {"decode_lanes": cuda_decode.LAUNCHES,
+    launches = {"decode_stream": cuda_decode.STREAM_LAUNCHES,
                 "filter_lanes": cuda_filter.LAUNCHES}
     if got_big != ref["stereo6_5min"] or got_short != ref["stereo8_23blocks"]:
         raise AssertionError("in-process card WAV != CPU WAV")
-    if big_launches != rounds + 1:
-        raise AssertionError(f"decode kernel launched {big_launches} times,"
-                             f" want rounds + 1 = {rounds + 1}")
+    if big_launches != (1, 0):
+        raise AssertionError(f"the long decode launched the stream kernel"
+                             f" {big_launches[0]} times and the lanes kernel"
+                             f" {big_launches[1]} times, want 1 and 0")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never ran:"
                              f" {launches}")
-    phase(4, "main_path_launches", K=K, Bc=Bp // K, lanes=K * fmt.channels,
-          rounds=rounds, **launches, encode_search=cuda_encode.LAUNCHES)
+    phase(4, "main_path_launches", K=sK, Bc=sBc, items=sK * fmt.channels,
+          rounds=rounds, **launches, decode_lanes=cuda_decode.LAUNCHES,
+          encode_search=cuda_encode.LAUNCHES)
     enc = encode_main_path(torch, dev, rng)
     seg_launches = segmented_counted(torch, dev, big, ref["stereo6_5min"],
                                      enc["big"], enc["ref"])
+    over_launches = oversized_corpus_counted(
+        torch, dev, {"big": big, "short": short},
+        {"big": ref["stereo6_5min"], "short": ref["stereo8_23blocks"]})
     big_file_segmented()
     ctmp_dir = tempfile.TemporaryDirectory(prefix="bjxa_smoke_corpus_")
     ctmp = pathlib.Path(ctmp_dir.name)
@@ -1945,6 +2190,8 @@ def main() -> int:
         phase(5, "time_filter_lanes", gpu=repr(gpu), shape="B=64,L=2",
               with_output=wo, kernel_ms=f"{k:.6f}", plain_ms=f"{p:.6f}")
 
+    stream = stream_timings(torch, dev, gpu, payload_d, state_d, fmt)
+
     e2e = []
     xa_to_wav(big, device=dev)
     for _ in range(5):
@@ -1959,25 +2206,24 @@ def main() -> int:
           msamples_per_s=f"{total / e2e_s / 1e6:.3f}",
           runs=[f"{s:.6f}" for s in e2e])
 
-    # where one decode's time goes, by stage (host clock, synchronized)
+    # where one decode's time goes, by stage (host clock, synchronized):
+    # the three stage functions of ops/decode._decode_payload_stream
+    # themselves, then decode_bytes' readback and xa_to_wav's WAV write
     from bjxa_tpu_torch import dump_pcm, dump_riff_header
 
-    stages = {k: [] for k in ("stage", "h2d", "fixpoint", "d2h", "wav")}
+    stages = {k: [] for k in ("host_copy", "h2d", "fixpoint", "d2h", "wav")}
     for _ in range(5):
         t = [time.perf_counter()]
-        lanes = tdecode.chunk_lanes_from_bytes(big[32:], fmt, K, Bp)
+        host = tdecode.stream_payload_host(memoryview(big)[32:], fmt)
         t.append(time.perf_counter())
-        lanes_d = torch.from_numpy(lanes).to(dev)
-        state_d = torch.from_numpy(fmt.initial_state_array()).to(dev)
+        pay = tdecode.stream_payload_upload(host, dev)
+        st_d = torch.from_numpy(fmt.initial_state_array()).to(dev)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        frames, _end, valid, _r = tdecode.decode_fixpoint_lanes(
-            lanes_d, state_d, bits=fmt.bits, num_chunks=K,
-            channels=fmt.channels, b_total=Bp,
-        )
+        frames, valid = tdecode.stream_decode_on_device(pay, fmt, st_d)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        tdecode.check_valid(valid[: fmt.blocks], fmt.channels)
+        tdecode.check_valid(valid, fmt.channels)
         pcm = frames[: fmt.samples].cpu().numpy()
         t.append(time.perf_counter())
         out = dump_riff_header(fmt.data_len_pcm, fmt.samples_rate,
@@ -2004,13 +2250,25 @@ def main() -> int:
           states_only_ms=f"{words_ms[False][0]:.6f}",
           measured_bound_ms=f"{measured_8:.6f}",
           share=f"{measured_8 / words_ms[True][0]:.4f}")
+    # the stream kernel against the same measured load/store rate, at its
+    # own bytes (the 6-bit row)
+    from bjxa_tpu_torch.benchmarks.roofline_bound import words_traffic
+
+    wB, wL, _wbits = WORDS_SHAPES[0]
+    rate_6 = (words_traffic(wB, wL, 6)
+              / meas["loadstore_bound"]["measured_ms"][6])
+    stream["measured_bound_ms"] = stream["bytes"] / rate_6
+    phase(5, "decode_stream_share_of_measured_bound", gpu=repr(gpu),
+          shape=f"B={fmt.blocks},C={fmt.channels},bits={fmt.bits}",
+          kernel_ms=f"{stream['ms']:.6f}",
+          measured_gb_per_s=f"{rate_6 / 1e6:.3f}",
+          measured_bound_ms=f"{stream['measured_bound_ms']:.6f}",
+          share=f"{stream['measured_bound_ms'] / stream['ms']:.4f}")
     bench_children(gpu)
 
     # each kernel's bound at the shape it was timed at: every input byte
     # read once and every output byte written once over the memory rate, or
     # its integer operations over the integer rate, whichever takes longer
-    from bjxa_tpu_torch.benchmarks.roofline_bound import words_traffic
-
     Bc, S, KC = bt.shape
     eB, eL = -(-parse_xa_header(enc["ref"]).blocks // enc["K"]), 2 * enc["K"]
     wB, wL, wbits = WORDS_SHAPES[0]
@@ -2041,10 +2299,10 @@ def main() -> int:
 
     summary = {"kernels": [
         entry("decode_lanes", "bjxa_tpu/ops/pallas_decode.py:83",
-              {"xa_to_wav": launches["decode_lanes"],
-               "decode_xa_stream": seg_launches["decode_lanes"],
+              {"decode_fixpoint_lanes": fixpoint_lanes_launches,
                "benchmarks": meas_launches["decode_lanes"]},
-              timed("decode_lanes", ms[("decode_lanes", True)])),
+              timed("decode_lanes", ms[("decode_lanes", True)]),
+              also_replaces="bjxa_tpu/ops/pallas_decode.py:141"),
         entry("filter_lanes", "bjxa_tpu/ops/pallas_filter.py:36",
               {"xa_to_wav": launches["filter_lanes"]},
               timed("filter_lanes", ms[("filter_lanes", True)])),
@@ -2072,6 +2330,16 @@ def main() -> int:
         entry("alu_mix", "tools/encode_pack_falsify.py:152",
               {"encode_pack_falsify": meas_launches["alu_mix"]},
               meas["alu_mix"]),
+        entry("decode_stream", "bjxa_tpu/ops/pallas_decode.py:83",
+              {"xa_to_wav": launches["decode_stream"],
+               "decode_xa_stream": seg_launches["decode_stream"],
+               "decode_corpus": over_launches},
+              {k: stream[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by")},
+              also_replaces="bjxa_tpu/ops/pallas_decode.py:141",
+              **{k: stream[k] for k in ("states_only_ms", "measured_bound_ms",
+                                        "rounds", "K", "Bc")},
+              bc_sweep={str(bc): v for bc, v in stream["bc_sweep"].items()}),
     ]}
     phase(5, "total", seconds=f"{time.perf_counter() - t_start:.3f}")
     print(json.dumps(summary), flush=True)

@@ -144,12 +144,19 @@ def _xa(bits, channels, blocks, seed):
     (6, 2, 5000, "decode"), (4, 1, 777, "decode"), (8, 2, 23, "filter"),
 ])
 def test_decode_bytes_card_matches_cpu(dev, bits, channels, blocks, kernel):
+    """A long stream takes exactly one stream-kernel launch and no launch
+    of the lanes kernel; a short one takes the filter kernel."""
     data = _xa(bits, channels, blocks, seed=blocks)
     fmt = parse_xa_header(data)
-    counter = cuda_decode if kernel == "decode" else cuda_filter
-    before = counter.LAUNCHES
+    before = (cuda_decode.STREAM_LAUNCHES, cuda_decode.LAUNCHES,
+              cuda_filter.LAUNCHES)
     got = decode_bytes(data[32:], fmt, device=dev)
-    assert counter.LAUNCHES > before
+    after = (cuda_decode.STREAM_LAUNCHES, cuda_decode.LAUNCHES,
+             cuda_filter.LAUNCHES)
+    if kernel == "decode":
+        assert after == (before[0] + 1, before[1], before[2])
+    else:
+        assert after[:2] == before[:2] and after[2] > before[2]
     np.testing.assert_array_equal(
         got, decode_bytes(data[32:], fmt, device="cpu")
     )
@@ -422,6 +429,194 @@ def test_words_kernel_refused_launch_raises(dev, monkeypatch):
     assert cdw.LAUNCHES == before
 
 
+# -- the stream kernel: a whole stream in the file's own byte layout ----------
+
+
+def _stream_case(bits, channels, B, seed, dev, slow=False):
+    """``(payload uint8[B*C*S], state int32[C, 2])`` on ``dev``: random
+    payload and profiles with factors 0-7 (5-7 invalid), or (``slow``) the
+    slow-merging stream -- factor 4, range 12, payload bytes near zero."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, size=(B, channels, 4 * bits + 1),
+                       dtype=np.uint8)
+    raw[:, :, 0] = (rng.integers(0, 8, size=(B, channels)) << 4
+                    | rng.integers(0, 16, size=(B, channels))).astype(np.uint8)
+    if slow:
+        raw[:, :, 1:] = rng.choice(np.array([0x00, 0x11, 0xEE, 0xFF],
+                                            np.uint8),
+                                   size=(B, channels, 4 * bits))
+        raw[:, :, 0] = 4 << 4 | 12
+    state = rng.integers(-(2**15), 2**15, size=(channels, 2))
+    return (torch.from_numpy(raw.reshape(-1).copy()).to(dev),
+            torch.from_numpy(state.astype(np.int32)).to(dev))
+
+
+def _stream_equals_plains(payload, state, bits, channels, chunks,
+                          sequential=True):
+    """The stream kernel at ``chunks`` (None: its own pick), with and
+    without output, against the chunked plain version (frames,
+    end and rounds) and the sequential one.  Returns the rounds."""
+    cd = cuda_decode
+    B = payload.numel() // (channels * (4 * bits + 1))
+    sms = torch.cuda.get_device_properties(payload.device).multi_processor_count
+    K = (cd.word_chunks(B, chunks)[0] if chunks is not None
+         else cd.pick_stream_chunks(B, channels, sms)[0])
+    if sequential:
+        seq = {wo: cd.fused_decode_stream_plain(
+            payload, state, bits=bits, channels=channels, with_output=wo)
+            for wo in (True, False)}
+    for wo in (True, False):
+        before = cd.STREAM_LAUNCHES
+        frames, end, rounds = cd.fused_decode_stream(
+            payload, state, bits=bits, channels=channels, with_output=wo,
+            chunks=chunks)
+        assert cd.STREAM_LAUNCHES == before + 1
+        pframes, pend, prounds = cd.fused_decode_stream_chunked_plain(
+            payload, state, bits=bits, channels=channels, chunks=K,
+            with_output=wo)
+        torch.cuda.synchronize()
+        assert int(rounds.item()) == prounds
+        assert (prounds == 0) if K == 1 else (1 <= prounds <= K)
+        assert torch.equal(end, pend)
+        assert (frames is None) == (not wo)
+        if wo:
+            assert tuple(frames.shape) == (B * 32, channels)
+            assert torch.equal(frames, pframes)
+        if sequential:
+            sframes, send = seq[wo]
+            assert torch.equal(end, send)
+            if wo:
+                assert torch.equal(frames, sframes)
+    return prounds
+
+
+@pytest.mark.parametrize("B,chunks", [
+    (97, None),  # its own K: 13 chunks of 8, the last of 1 block
+    (97, 7),  # a short last chunk of 13 blocks
+    (1000, 125),
+    (1, 1),
+])
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("bits", [4, 6, 8])
+def test_stream_kernel_matches_plains(dev, bits, channels, B, chunks):
+    payload, state = _stream_case(bits, channels, B, 10 * B + bits, dev)
+    _stream_equals_plains(payload, state, bits, channels, chunks)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("bits", [4, 6, 8])
+def test_stream_kernel_slow_merging_stream(dev, bits, channels):
+    payload, state = _stream_case(bits, channels, 23, bits, dev, slow=True)
+    assert 2 < _stream_equals_plains(payload, state, bits, channels, 23) <= 23
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_stream_kernel_no_blocks(dev, channels):
+    payload = torch.empty(0, dtype=torch.uint8, device=dev)
+    state = torch.tensor([[5, -6], [7, -8]][:channels], dtype=torch.int32,
+                         device=dev)
+    for wo in (True, False):
+        frames, end, rounds = cuda_decode.fused_decode_stream(
+            payload, state, bits=8, channels=channels, with_output=wo)
+        torch.cuda.synchronize()
+        assert torch.equal(end, state) and int(rounds.item()) == 0
+        assert (frames is None) == (not wo)
+        if wo:
+            assert tuple(frames.shape) == (0, channels)
+
+
+def test_stream_kernel_grid_smaller_than_items(dev):
+    """More work items than the persistent grid has threads (one block a
+    chunk over 100,000 blocks of stereo): threads take several items, every
+    round."""
+    cd = cuda_decode
+    bits, channels, B = 4, 2, 100_000
+    ctas = cd.stream_ctas(B * channels, bits=bits, channels=channels,
+                          with_output=True, device=dev)
+    assert ctas * cd.CTA_THREADS < B * channels
+    payload, state = _stream_case(bits, channels, B, 5, dev)
+    _stream_equals_plains(payload, state, bits, channels, B,
+                          sequential=False)
+
+
+def test_stream_kernel_at_the_main_path_shape(dev):
+    """The 5-minute stereo 6-bit stream at the wrapper's own K."""
+    payload, state = _stream_case(6, 2, 413_438, 6, dev)
+    _stream_equals_plains(payload, state, 6, 2, None, sequential=False)
+
+
+def test_stream_wrapper_rejects_bad_inputs(dev):
+    cd = cuda_decode
+    payload = torch.zeros(4 * 2 * 25, dtype=torch.uint8, device=dev)
+    state = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    bad = [
+        (payload.int(), state, 6, 2, {}, TypeError),
+        (payload, state.long(), 6, 2, {}, TypeError),
+        (payload, state, 5, 2, {}, ValueError),
+        (payload, state, 6, 3, {}, ValueError),
+        (payload[:-1], state, 6, 2, {}, ValueError),
+        (payload[1:].contiguous(), state, 6, 2, {}, ValueError),
+        (payload.view(4, 50), state, 6, 2, {}, ValueError),
+        (payload, state[:1], 6, 2, {}, ValueError),
+        (payload, state.cpu(), 6, 2, {}, ValueError),
+        (payload, state, 6, 2, {"chunks": 0}, ValueError),
+        (payload.cpu(), state.cpu(), 6, 2, {}, ValueError),
+    ]
+    before = cd.STREAM_LAUNCHES
+    for p, st, bits, ch, kw, exc in bad:
+        with pytest.raises(exc):
+            cd.fused_decode_stream(p, st, bits=bits, channels=ch, **kw)
+    # a payload that starts off a 4-byte boundary
+    with pytest.raises(ValueError, match="4-byte"):
+        cd.fused_decode_stream(
+            torch.zeros(4 * 50 + 1, dtype=torch.uint8, device=dev)[1:],
+            state, bits=6, channels=2)
+    assert cd.STREAM_LAUNCHES == before
+
+
+def test_stream_refused_launch_raises(dev, monkeypatch):
+    """A cooperative grid larger than the card holds at once is refused,
+    and the wrapper raises; nothing falls back."""
+    cd = cuda_decode
+    payload, state = _stream_case(8, 2, 4096, 3, dev)
+    fit = cd.stream_ctas(1 << 40, bits=8, channels=2, with_output=True,
+                         device=dev)
+    monkeypatch.setattr(cd, "stream_ctas", lambda *a, **k: fit + 1)
+    before = cd.STREAM_LAUNCHES
+    with pytest.raises(RuntimeError, match="bjxa_decode_stream"):
+        cd.fused_decode_stream(payload, state, bits=8, channels=2, chunks=4)
+    assert cd.STREAM_LAUNCHES == before
+
+
+def test_stream_path_makes_no_host_sync(dev):
+    """The stream kernel's wrapper and the card branch of the whole-file
+    decode, up to its readback, call nothing that synchronizes with the
+    card."""
+    from bjxa_tpu_torch.ops.decode import _decode_payload
+
+    data = _xa(6, 2, 5000, seed=12)
+    fmt = parse_xa_header(data)
+    state = torch.from_numpy(fmt.initial_state_array()).to(dev)
+    payload, pstate = _stream_case(6, 2, 3000, 4, dev)
+    # warm: the build, the library and the occupancy queries
+    cuda_decode.fused_decode_stream(payload, pstate, bits=6, channels=2)
+    _decode_payload(memoryview(data)[32:], fmt, state, dev)
+    torch.cuda.synchronize()
+    before = cuda_decode.STREAM_LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cuda_decode.fused_decode_stream(payload, pstate, bits=6, channels=2)
+        frames, valid = _decode_payload(memoryview(data)[32:], fmt, state,
+                                        dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda_decode.STREAM_LAUNCHES == before + 2
+    np.testing.assert_array_equal(
+        frames[: fmt.samples].cpu().numpy(),
+        decode_bytes(data[32:], fmt, device="cpu"))
+    assert bool(valid.all())
+
+
 def test_decode_corpus_card_matches_cpu(dev, tmp_path):
     src = tmp_path / "src"
     src.mkdir()
@@ -589,11 +784,14 @@ def test_segmented_decode_card_matches_whole_file(dev, bits, channels,
                                                   blocks, seg):
     data = _xa(bits, channels, blocks, seed=blocks + seg)
     fmt = parse_xa_header(data)
-    before = cuda_decode.LAUNCHES + cuda_filter.LAUNCHES
+    before = cuda_decode.STREAM_LAUNCHES + cuda_filter.LAUNCHES
+    stream_before = cuda_decode.STREAM_LAUNCHES
     parts = list(iter_decode_segments(io.BytesIO(data[32:]).read, fmt,
                                       device=dev, segment_blocks=seg))
-    assert cuda_decode.LAUNCHES + cuda_filter.LAUNCHES > before
+    assert cuda_decode.STREAM_LAUNCHES + cuda_filter.LAUNCHES > before
     assert len(parts) == -(-blocks // seg)
+    if seg > 64:  # every segment is long: one stream launch each
+        assert cuda_decode.STREAM_LAUNCHES - stream_before == len(parts)
     np.testing.assert_array_equal(
         np.concatenate(parts), decode_bytes(data[32:], fmt, device="cpu"))
     out = io.BytesIO()
@@ -638,9 +836,11 @@ def test_corpus_oversized_files_card_match_cpu(dev, tmp_path, monkeypatch):
     (src / "big.xa").write_bytes(_xa(6, 2, 3000, seed=1))
     (src / "small.xa").write_bytes(_xa(6, 2, 30, seed=2))
     monkeypatch.setenv("BJXA_SEGMENT_THRESHOLD", "100000")
-    before = cuda_decode.LAUNCHES
+    before = (cuda_decode.STREAM_LAUNCHES, cuda_decode.LAUNCHES)
     card = decode_corpus(src, tmp_path / "card", device=dev)
-    assert cuda_decode.LAUNCHES > before  # the segmented route's kernel
+    # the segmented route's kernel, and never the lanes kernel
+    assert cuda_decode.STREAM_LAUNCHES > before[0]
+    assert cuda_decode.LAUNCHES == before[1]
     cpu = decode_corpus(src, tmp_path / "cpu", device="cpu")
     assert card.converted == cpu.converted == 2 and not card.failed
     assert "segmented" in card.counters.stage_ms
