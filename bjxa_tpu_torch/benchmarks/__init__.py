@@ -12,6 +12,10 @@ the JAX package's ``benchmarks/`` directory:
   the corpus engine and the segmented decode end to end
   (``bench_encode.py``, ``bench_corpus.py``, ``bench_segmented.py``).
 
+Card-only scripts of the port's own: ``search_unroll`` and ``stream_store``
+(kernel ablations), and ``short_stream.py``, run as a file with ``--root``
+to time the short-stream path of any checkout's package.
+
 The headline, ``python -m bjxa_tpu_torch.bench``, is the port of the root
 ``bench.py``.  Every script runs on the CUDA card unless
 ``BJXA_PLATFORM=cpu`` (a rehearsal: its numbers are host times of the plain

@@ -42,20 +42,22 @@ __device__ __forceinline__ int32_t sign16(uint32_t v) {
 
 // Sample n of a block in the top bits of a 16-bit word, from the block's
 // 4*BITS payload bytes (the reference's inflate, src/libbjxa.c:286-345).
-// n is a constant once the caller's sample loop is unrolled.  Shifts stay
-// unsigned: a left shift of a negative int is undefined in C++17.
-template <int BITS>
-__device__ __forceinline__ uint32_t unpack_sample(const uint32_t* bytes,
+// n is a constant once the caller's sample loop is unrolled; `bytes` is
+// any pointer to byte values (registers as uint32_t, or shared uint8_t).
+// Shifts stay unsigned: a left shift of a negative int is undefined in
+// C++17.
+template <int BITS, class Bytes>
+__device__ __forceinline__ uint32_t unpack_sample(const Bytes* bytes,
                                                   int n) {
+  auto at = [&](int i) { return static_cast<uint32_t>(bytes[i]); };
   if constexpr (BITS == 8) {
-    return bytes[n] << 8;
+    return at(n) << 8;
   } else if constexpr (BITS == 4) {
-    const uint32_t bb = bytes[n / 2];
+    const uint32_t bb = at(n / 2);
     return (n % 2 == 0) ? (bb & 0xF0u) << 8 : (bb & 0x0Fu) << 12;
   } else {  // 6: three bytes -> four samples through a 24-bit window
     const int base = 3 * (n / 4);
-    const uint32_t w =
-        (bytes[base] << 16) | (bytes[base + 1] << 8) | bytes[base + 2];
+    const uint32_t w = (at(base) << 16) | (at(base + 1) << 8) | at(base + 2);
     switch (n % 4) {
       case 0: return (w & 0x00FC0000u) >> 8;
       case 1: return (w & 0x0003F000u) >> 2;

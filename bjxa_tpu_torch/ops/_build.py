@@ -53,6 +53,12 @@ SIGNATURES = {
     # samples, k0, k1, shift, state, pcm, end, B, L, with_output, device,
     # stream
     "bjxa_filter_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # blocks, state, frames, end, valid, rounds, B, C, K, Bc, bits,
+    # with_output, device, stream
+    "bjxa_decode_short": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P),
+    # device, stream
+    "bjxa_empty_launch": (_I, _P),
     # pcm, state, profiles, coded, recon, end, B, L, bits, device, stream
     "bjxa_encode_search": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # first (blocks_t | prof), words, state, out, end, B, L, load, store,

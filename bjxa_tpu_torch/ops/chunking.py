@@ -29,6 +29,14 @@ MIN_CHUNK_BLOCKS = 8
 #: rounds, each of which re-reads the input: on a corpus batch K = B/16
 #: beat B/8 and B/32 on the H100 (``PERF.md``, section 6).
 TARGET_LANES_PER_SM = 320
+#: Blocks a chunk of the short-stream kernel keeps
+#: (``kShortChunkBlocks`` in ``csrc/filter_lanes.cu``): one CTA runs the
+#: chain of a stream of at most 64 blocks, (rounds + 1) x Bc x 32 steps
+#: against B x 32 unchunked.  Chunks of 1, 2 and 3 blocks summed within
+#: 3 % of each other over 15, 23 and 61 stereo blocks on the H100 (mono
+#: favours 1), K = 1 up to 3x slower; 3 takes the fewest rounds of the
+#: three (``PERF.md``, section 6, the Bc sweep).
+SHORT_CHUNK_BLOCKS = 3
 
 
 def word_chunks(B: int, chunks: int) -> tuple[int, int]:
@@ -40,6 +48,16 @@ def word_chunks(B: int, chunks: int) -> tuple[int, int]:
     if B == 0:
         return 1, 0
     Bc = -(-B // min(chunks, B))
+    return -(-B // Bc), Bc
+
+
+def pick_short_chunks(B: int) -> tuple[int, int]:
+    """``(K, Bc)`` of the short-stream kernel for ``B`` blocks: chunks of
+    ``Bc = min(SHORT_CHUNK_BLOCKS, B)`` blocks, the last one may be short.
+    ``B = 0`` gives ``(1, 0)``."""
+    if B == 0:
+        return 1, 0
+    Bc = min(SHORT_CHUNK_BLOCKS, B)
     return -(-B // Bc), Bc
 
 

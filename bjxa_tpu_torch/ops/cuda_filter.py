@@ -1,27 +1,46 @@
-"""ADPCM prediction filter over unpacked lanes: the CUDA kernel and its
-plain twin.
+"""ADPCM prediction filter of short streams and over unpacked lanes: the
+CUDA kernels and their plain twins.
 
-Port of :mod:`bjxa_tpu.ops.pallas_filter`.  The kernel,
-``csrc/filter_lanes.cu``, replaces ``pallas_filter._filter_kernel`` (with
-output) and ``pallas_filter._states_kernel`` (end state only): the range
-shift of already-unpacked int16 samples, then the prediction filter with
-int16 saturation.  It is bound by memory bytes where lanes are many and by
-the latency of the serial recurrence on the short-stream path (1 or 2
-lanes); see the source for the design.
+Port of :mod:`bjxa_tpu.ops.pallas_filter`.  ``csrc/filter_lanes.cu``
+replaces ``pallas_filter._filter_kernel`` (with output) and
+``pallas_filter._states_kernel`` (end state only) through two entries:
 
-:func:`adpcm_filter_kernel` routes by the tensors' device alone: a CPU
-tensor takes :func:`adpcm_filter_plain`, a CUDA tensor launches the
-kernel, anything else raises.
+* :func:`fused_decode_short` -- the whole of ``decode_arrays`` for one
+  short stream in ONE launch: raw blocks ``uint8[C, B, S]`` in,
+  interleaved frames, end state and validity out.  One CTA stages the
+  stream in shared memory, unpacks every sample in parallel and runs the
+  recurrence as K chunks a channel solved by the exact fixed point of
+  ``csrc/chunk_fixpoint.cuh`` (:func:`pick_short_chunks`).  The short
+  stream's path on the card (:func:`bjxa_tpu_torch.ops.decode.
+  decode_arrays`).
+* :func:`adpcm_filter_kernel` -- the TPU kernels' own contract: the range
+  shift of already-unpacked int16 samples, then the filter.  Few lanes take
+  the same one-CTA body, many lanes one thread per lane.
+
+Both are bound by the latency of the serial recurrence on a short stream
+and by memory bytes where lanes are many; see the source for the design.
+
+Each wrapper routes by the tensors' device alone: a CPU tensor takes the
+plain version (:func:`decode_short_plain`, :func:`adpcm_filter_plain`), a
+CUDA tensor launches the kernel, anything else raises.
+:func:`decode_short_chunked_plain` is the fused kernel's schedule in plain
+PyTorch, round count included.
 """
 
 from __future__ import annotations
 
 import torch
 
+from bjxa_tpu_torch.ops.chunking import pick_short_chunks, word_chunks
 from bjxa_tpu_torch.ops.filter import adpcm_filter_lanes, profile_gains
+from bjxa_tpu_torch.ops.inflate import inflate_blocks
 
-#: Launches of the filter kernel in this process (plain runs never count).
+#: Launches of the samples entry (``bjxa_filter_lanes``) in this process
+#: (plain runs never count).
 LAUNCHES = 0
+#: Launches of the fused short-stream entry (``bjxa_decode_short``) in this
+#: process (plain runs never count).
+SHORT_LAUNCHES = 0
 
 
 def adpcm_filter_plain(
@@ -137,3 +156,170 @@ def decode_lanes_kernel(
         with_output=with_output,
     )
     return pcm, end, valid
+
+
+# --------------------------------------------------------------------------
+# the fused short-stream entry: decode_arrays in one launch
+# --------------------------------------------------------------------------
+
+
+def _short_blocks(blocks, state, bits: int) -> tuple[int, int]:
+    """Check the fused entry's arguments; returns ``(C, B)``."""
+    if bits not in (4, 6, 8):
+        raise ValueError(f"fused_decode_short: bad bit depth {bits}")
+    if blocks.dtype != torch.uint8 or state.dtype != torch.int32:
+        raise TypeError(
+            "fused_decode_short: want uint8 blocks and an int32 state, got"
+            f" {blocks.dtype} and {state.dtype}"
+        )
+    if blocks.dim() != 3 or blocks.shape[2] != 4 * bits + 1:
+        raise ValueError(
+            f"fused_decode_short: blocks {tuple(blocks.shape)} are not"
+            f" [C, B, {4 * bits + 1}]"
+        )
+    C, B, _S = blocks.shape
+    if C < 1 or tuple(state.shape) != (C, 2):
+        raise ValueError(f"fused_decode_short: state {tuple(state.shape)}"
+                         f" for {C} channels")
+    if blocks.device != state.device:
+        raise ValueError("fused_decode_short: blocks and state on"
+                         f" {blocks.device} and {state.device}")
+    if not (blocks.is_contiguous() and state.is_contiguous()):
+        raise ValueError("fused_decode_short: inputs must be contiguous")
+    return C, B
+
+
+def decode_short_plain(
+    blocks: torch.Tensor,
+    state: torch.Tensor,
+    *,
+    bits: int,
+    with_output: bool = True,
+):
+    """Plain PyTorch version of the fused entry, sequential over blocks:
+    :func:`~bjxa_tpu_torch.ops.inflate.inflate_blocks`, the gains, then
+    :func:`adpcm_filter_plain` -- what ``decode_arrays`` computes on the
+    CPU.  On any device; it never launches a kernel.
+
+    Returns ``(frames int16[B*32, C] | None, end int32[C, 2],
+    valid bool[B, C])``.
+    """
+    C, _B = _short_blocks(blocks, state, bits)
+    profiles, samples = inflate_blocks(blocks, bits)  # [C, B], [C, B, 32]
+    k0, k1, shift, valid = profile_gains(profiles.transpose(0, 1))
+    pcm, end = adpcm_filter_plain(samples.permute(1, 2, 0), k0, k1, shift,
+                                  state, with_output=with_output)
+    return (pcm.reshape(-1, C) if pcm is not None else None), end, valid
+
+
+def decode_short_chunked_plain(
+    blocks: torch.Tensor,
+    state: torch.Tensor,
+    *,
+    bits: int,
+    chunks: int,
+    with_output: bool = True,
+):
+    """Plain PyTorch version of the fused entry's schedule at ``chunks``
+    (:func:`~bjxa_tpu_torch.ops.cuda_decode.chunked_lanes_plain` over the
+    channels as lanes, whose rounds are
+    :func:`~bjxa_tpu_torch.ops.chunking.fixpoint_states`'): the CPU oracle
+    for the chunk indexing, the short last chunk and the round count.  On
+    any device; it never launches a kernel.
+
+    Returns ``(frames int16[B*32, C] | None, end int32[C, 2],
+    valid bool[B, C], rounds)``.
+    """
+    # cuda_decode imports this module: import it at call time
+    from bjxa_tpu_torch.ops.cuda_decode import chunked_lanes_plain
+
+    C, _B = _short_blocks(blocks, state, bits)
+    pcm, end, rounds = chunked_lanes_plain(
+        blocks.permute(1, 2, 0), state, bits=bits, chunks=chunks,
+        with_output=with_output,
+    )
+    valid = (blocks[:, :, 0] >> 4).transpose(0, 1) < 5
+    frames = pcm.reshape(-1, C) if pcm is not None else None
+    return frames, end, valid, rounds
+
+
+def _launch_short(blocks, state, *, bits, with_output, chunks):
+    global SHORT_LAUNCHES
+    from bjxa_tpu_torch.ops._build import check_launch, library
+
+    C, B = _short_blocks(blocks, state, bits)
+    K, Bc = pick_short_chunks(B) if chunks is None else word_chunks(B, chunks)
+    dev = blocks.device
+    frames = (
+        torch.empty((B * 32, C), dtype=torch.int16, device=dev)
+        if with_output
+        else None
+    )
+    end = torch.empty((C, 2), dtype=torch.int32, device=dev)
+    valid = torch.empty((B, C), dtype=torch.bool, device=dev)
+    rounds = torch.empty(1, dtype=torch.int32, device=dev)
+    err = library().bjxa_decode_short(
+        blocks.data_ptr(), state.data_ptr(),
+        frames.data_ptr() if frames is not None else None, end.data_ptr(),
+        valid.data_ptr(), rounds.data_ptr(), B, C, K, Bc, bits,
+        int(with_output), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_launch(err, "bjxa_decode_short")
+    SHORT_LAUNCHES += 1
+    return frames, end, valid, rounds
+
+
+def fused_decode_short(
+    blocks: torch.Tensor,
+    state: torch.Tensor,
+    *,
+    bits: int,
+    with_output: bool = True,
+    chunks: int | None = None,
+):
+    """Decode one short stream from its raw blocks (one launch, one CTA).
+
+    Args:
+      blocks: ``uint8[C, B, 4*bits + 1]`` -- raw XA blocks per channel
+        (the layout of ``decode_arrays``).
+      state:  ``int32[C, 2]`` -- the entry state.
+      with_output: False computes only the end state (and the validity).
+      chunks: forces K (tests and the smoke run); by default
+        :func:`~bjxa_tpu_torch.ops.chunking.pick_short_chunks` chooses it.
+
+    Returns ``(frames int16[B*32, C] | None, end int32[C, 2],
+    valid bool[B, C], rounds int32[1])``: the frames interleaved in the
+    WAV's order and the kernel's round count, left on the device (the CPU's
+    plain version runs the blocks in order: 0 rounds).  The kernel's shared
+    memory grows with ``B x C`` (136 bytes each); a stream past the card's
+    limit is refused and raises, as does a non-CUDA device.  Nothing falls
+    back.
+    """
+    if blocks.device.type == "cpu":
+        frames, end, valid = decode_short_plain(
+            blocks, state, bits=bits, with_output=with_output
+        )
+        return frames, end, valid, torch.zeros(1, dtype=torch.int32)
+    if blocks.device.type != "cuda":
+        raise ValueError(
+            f"fused_decode_short: no kernel for device {blocks.device}"
+        )
+    return _launch_short(blocks, state, bits=bits, with_output=with_output,
+                         chunks=chunks)
+
+
+def empty_launch(device: torch.device) -> None:
+    """One launch of a kernel that does nothing (``bjxa_empty_launch``) on
+    the current stream: the launch floor the timings hold the short-stream
+    kernels against.  CUDA only."""
+    from bjxa_tpu_torch.ops._build import check_launch, library
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"empty_launch: no kernel for device {device}")
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    err = library().bjxa_empty_launch(
+        index, torch.cuda.current_stream(device).cuda_stream)
+    check_launch(err, "bjxa_empty_launch")

@@ -5,7 +5,8 @@ whole-file pipelines share the lane-vectorized filter:
 
 * :func:`decode_arrays` — one file, lanes = channels.  The honest
   sequential-over-blocks recurrence, used for short streams; on a CUDA
-  device it runs the filter kernel (:mod:`bjxa_tpu_torch.ops.cuda_filter`).
+  device it is one launch of the fused short-stream kernel
+  (:func:`~bjxa_tpu_torch.ops.cuda_filter.fused_decode_short`).
 * :func:`decode_fixpoint_lanes` — one file, lanes = chunks x channels.
   Exact intra-file parallelism: the block range is split into K chunks
   that all decode in parallel from guessed boundary predictor states,
@@ -55,6 +56,7 @@ from bjxa_tpu_torch.ops.cuda_decode import (
     fused_decode_lanes,
     fused_decode_stream,
 )
+from bjxa_tpu_torch.ops.cuda_filter import fused_decode_short
 from bjxa_tpu_torch.ops.filter import decode_lanes
 from bjxa_tpu_torch.ops.inflate import inflate_blocks
 from bjxa_tpu_torch.ops.tables import BLOCK_SAMPLES
@@ -72,9 +74,19 @@ def decode_arrays(blocks: torch.Tensor, state: torch.Tensor, *, bits: int):
       blocks: ``uint8[C, B, block_size]`` raw XA blocks per channel.
       state:  ``int32[C, 2]`` initial predictor state (header befL/befR).
 
+    On the CPU: :func:`inflate_blocks`, then :func:`decode_lanes`.  On any
+    other device: ONE launch of the fused short-stream kernel
+    (:func:`~bjxa_tpu_torch.ops.cuda_filter.fused_decode_short`), which
+    raises where there is no kernel.
+
     Returns ``(pcm int16[B*32, C], end_state int32[C, 2], valid bool[B, C])``
     on the tensors' device.
     """
+    if blocks.device.type != "cpu":
+        frames, end_state, valid, _rounds = fused_decode_short(
+            blocks, state, bits=bits
+        )
+        return frames, end_state, valid
     profiles, samples = inflate_blocks(blocks, bits)  # [C,B], [C,B,32]
     profiles = profiles.transpose(0, 1)  # [B, C]
     samples = samples.permute(1, 2, 0)  # [B, 32, C]

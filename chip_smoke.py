@@ -19,6 +19,10 @@ Phases, one line each (any failure raises and exits nonzero):
    version
    (rounds included) and its sequential one (bits 4/6/8 x 1/2 channels at a
    prime block count, B = 0, a slow-merging stream, the 5-minute shape);
+   the fused short-stream kernel against its sequential plain version
+   (frames, end state, validity) and its chunked one (rounds) at every
+   block count of the short path's checks x bits x channels x chunk size;
+   the samples entry in both regimes (one CTA, one thread per lane);
 3. known answers: the saturation vector's WAV SHA-1 (and the reference's
    golden fixtures when ``BJXA_REFERENCE_DIR`` points at them), the
    encoder's ranking-contract vectors, and an encode -> decode round trip
@@ -32,7 +36,8 @@ Phases, one line each (any failure raises and exits nonzero):
    few files, and for the 5-minute encode the card's own bytes, whose first
    100 s the CPU checks); the launch counters show the in-process decode, encode and
    corpus runs went through every kernel of their path (a long whole-file
-   decode is ONE stream-kernel launch, a segmented one a launch a segment,
+   decode is ONE stream-kernel launch, a short one ONE launch of the fused
+   short-stream kernel, a segmented one a launch a segment,
    an oversized corpus file the same), the stream kernel's rounds equal
    its chunked plain version's at the card's K, and the encode's
    fixed point took as many rounds on the card as on the CPU; the encode
@@ -43,7 +48,12 @@ Phases, one line each (any failure raises and exits nonzero):
    fails like the CPU on an invalid profile and a truncated body; the
    measurement scripts run in-process with their launches counted;
 5. timings on the card (CUDA events, median of repeats after warm-up), the
-   per-stage split of each main path, the stream kernel at the 5-minute
+   per-stage split of each main path, the short-stream path (the launch
+   floor of an empty kernel, the samples entry and the fused kernel in
+   eager windows and in CUDA graphs, the fused kernel's chunk-size sweep,
+   the step's cycles at the SM clock and each timing's chain floor, and a
+   short ``xa_to_wav`` on the fused route and the old one with the device
+   kernels of each from ``torch.profiler``), the stream kernel at the 5-minute
    stream (with and without output, a sweep of chunk sizes, its share of
    the measured
    load/store bound), the encoder's sequential search
@@ -88,6 +98,8 @@ DEVICE = "cuda"
 # Kernel checks, (B, L): the main path's shape first (5-minute stereo file:
 # 104 blocks per chunk over 4096 chunks x 2 channels), then ragged ones.
 DECODE_SHAPES = ((104, 8192), (7, 8191), (1, 37))
+# The samples entry's shapes: its two regimes, one CTA over shared memory
+# for few lanes (64 x 2, 13 x 1) and one thread per lane for many.
 FILTER_SHAPES = ((64, 2), (13, 1), (104, 8192))
 
 # Streams through the CLI: name -> (bits, channels, samples).  The first is
@@ -151,6 +163,15 @@ STREAM_CHECKS = tuple(
      (413438, 2, 6, None, "random"))
 # Chunk sizes (blocks) timed at the 5-minute stream besides the wrapper's.
 STREAM_BC_SWEEP = (8, 16, 32)
+# The fused short-stream kernel: every block count of the short path's
+# checks (1-15 and the odd counts that pick_chunks cannot split, up to 61)
+# x bits {4, 6, 8} x channels {1, 2}, at chunks of Bc blocks for each Bc
+# ("B": K = 1) and the wrapper's default, with and without output.
+SHORT_BLOCKS = (1, 2, 7, 15, 17, 23, 25, 49, 61)
+SHORT_BC = (1, 2, 4, 8, "B")
+# Its timings: block counts x channels (8-bit), and the Bc sweep at each.
+SHORT_TIMED = ((15, 1), (15, 2), (23, 1), (23, 2), (61, 1), (61, 2))
+SHORT_BC_SWEEP = (1, 2, 3, 4, 8, "B")
 
 # Words-kernel checks, (B, L, bits): the old bench.py headline first (16,384
 # stereo 8-bit files x 64 blocks), then ragged shapes.
@@ -231,9 +252,12 @@ DECODE_OPS_PER_SAMPLE = 13
 FILTER_OPS_PER_SAMPLE = 10
 ENCODE_OPS_PER_CANDIDATE_SAMPLE = 15
 
-#: The kernels of the port, by the name of their ``csrc`` source.
+#: The kernels of the port, by the names of their kernel functions
+#: (``<name>_kernel``): each source's own name, and ``csrc/filter_lanes.cu``'s
+#: fused short-stream decode and one-CTA filter besides.
 KERNELS = ("decode_lanes", "filter_lanes", "encode_search", "decode_words",
-           "decode_variants", "loadstore_bound", "alu_mix", "decode_stream")
+           "decode_variants", "loadstore_bound", "alu_mix", "decode_stream",
+           "decode_short", "filter_short")
 
 
 def sha1(data: bytes) -> str:
@@ -917,6 +941,80 @@ def stream_equals_plains(torch, payload, state, bits: int, channels: int,
                 f" rounds, the chunked plain version {prounds}")
         worst = max(worst, e)
     return worst, got[True], got[False], K, Bc
+
+
+def short_case(rng, B: int, channels: int, bits: int):
+    """Seeded fused-kernel inputs: ``(blocks uint8[C, B, S], state
+    int32[C, 2])`` with random payload bytes, factors 0-4, ranges 0-15 and
+    a random entry state; from 3 blocks on, the first quarter of the blocks
+    saturates (factor 1, range 0, every sample the largest positive
+    top-bits value in channel 0, the most negative in channel 1) and block
+    B // 2 of the last channel has an invalid factor."""
+    S = 4 * bits + 1
+    raw = rng.integers(0, 256, size=(channels, B, S), dtype=np.uint8)
+    raw[:, :, 0] = (rng.integers(0, 5, size=(channels, B)) << 4
+                    | rng.integers(0, 16, size=(channels, B))).astype(np.uint8)
+    if B >= 3:
+        sat = max(1, B // 4)
+        top = {4: ([0x77], [0x88]), 6: ([0x7D, 0xF7, 0xDF], [0x82, 0x08, 0x20]),
+               8: ([0x7F], [0x80])}[bits]
+        raw[:, :sat, 0] = 0x10
+        for c in range(channels):
+            raw[c, :sat, 1:] = np.resize(np.array(top[c], np.uint8), S - 1)
+        raw[channels - 1, B // 2, 0] = 0x5A
+    state = rng.integers(-(2**15), 2**15, size=(channels, 2)).astype(np.int32)
+    return raw, state
+
+
+def check_short_kernel(torch, dev, rng) -> int:
+    """Phase 2 for the fused short-stream kernel (``SHORT_BLOCKS`` x bits
+    x channels x ``SHORT_BC``): with and without output, its frames, end
+    state and validity against the sequential plain version and its rounds
+    against the chunked plain version at the same chunks, both on the CPU
+    from the same inputs.  Returns the max |kernel - plain|."""
+    from bjxa_tpu_torch.ops import cuda_filter as cf
+    from bjxa_tpu_torch.ops.chunking import pick_short_chunks
+
+    worst, cases, most_rounds = 0, 0, 0
+    t0 = time.perf_counter()
+    for bits in (4, 6, 8):
+        for channels in (1, 2):
+            for B in SHORT_BLOCKS:
+                blocks, state = short_case(rng, B, channels, bits)
+                bt, st = torch.from_numpy(blocks), torch.from_numpy(state)
+                bd, sd = bt.to(dev), st.to(dev)
+                want = cf.decode_short_plain(bt, st, bits=bits)
+                for bc in SHORT_BC + (None,):  # None: the default chunks
+                    chunks = (None if bc is None
+                              else -(-B // (B if bc == "B" else bc)))
+                    rounds = cf.decode_short_chunked_plain(
+                        bt, st, bits=bits,
+                        chunks=chunks or pick_short_chunks(B)[0],
+                        with_output=False)[3]
+                    for wo in (True, False):
+                        frames, end, valid, r = cf.fused_decode_short(
+                            bd, sd, bits=bits, chunks=chunks, with_output=wo)
+                        torch.cuda.synchronize()
+                        e = max(exact_err(end.cpu(), want[1]),
+                                exact_err(valid.cpu(), want[2]))
+                        if wo:
+                            e = max(e, exact_err(frames.cpu(), want[0]))
+                        elif frames is not None:
+                            raise AssertionError("states-only run returned"
+                                                 " frames")
+                        if int(r.item()) != rounds:
+                            raise AssertionError(
+                                f"short kernel at B={B}, C={channels},"
+                                f" chunks={chunks}: {int(r.item())} rounds,"
+                                f" the chunked plain version {rounds}")
+                        worst = max(worst, e)
+                        most_rounds = max(most_rounds, rounds)
+                        cases += 1
+    phase(2, "short_equal_plain", cases=cases, blocks=list(SHORT_BLOCKS),
+          bc=[str(b) for b in SHORT_BC], bits=[4, 6, 8], channels=[1, 2],
+          most_rounds=most_rounds, max_abs_err=worst,
+          seconds=f"{time.perf_counter() - t0:.3f}")
+    return worst
 
 
 def check_stream_kernel(torch, dev, rng) -> int:
@@ -1716,6 +1814,179 @@ def oversized_corpus_counted(torch, dev, images: dict, wavs: dict) -> int:
     return launches
 
 
+def sm_clock_mhz() -> float:
+    """The card's SM clock now, in MHz, as nvidia-smi reports it."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(res.stdout.strip().splitlines()[0])
+
+
+def old_short_route(blocks, state, *, bits):
+    """``decode_arrays`` as the card ran it before the fused kernel:
+    ``inflate_blocks`` and ``decode_lanes`` (about 20 eager kernels around
+    one launch of the samples entry) on the blocks' device."""
+    from bjxa_tpu_torch.ops.filter import decode_lanes
+    from bjxa_tpu_torch.ops.inflate import inflate_blocks
+
+    profiles, samples = inflate_blocks(blocks, bits)
+    pcm, end, valid = decode_lanes(profiles.transpose(0, 1),
+                                   samples.permute(1, 2, 0), state)
+    return pcm.reshape(-1, pcm.shape[-1]), end, valid
+
+
+def short_timings(torch, dev, gpu: str, short: bytes, short_wav: bytes
+                  ) -> dict:
+    """Phase 5 for the short-stream path.  CUDA events over windows of
+    launches, eager (host and device: what a caller pays a launch) and
+    captured in a CUDA graph (the device alone): the launch floor (an
+    empty kernel), kernels 3-4 (the samples entry) at B=64, L=2, the fused
+    kernel at ``SHORT_TIMED`` and its Bc sweep; the SM clock, the step's
+    cycles (the slope of K = 1 between 15 and 61 blocks) and each timing's
+    chain floor; the short ``xa_to_wav`` on the fused route and the old one
+    (host clock, synchronised, median of 21) with the device kernels of one
+    decode on each.  Returns what the kernel summary needs."""
+    from bjxa_tpu_torch import xa_to_wav
+    from bjxa_tpu_torch.benchmarks.short_stream import device_ops, graph_ms
+    from bjxa_tpu_torch.ops import cuda_filter as cf
+    from bjxa_tpu_torch.ops import decode as tdecode
+    from bjxa_tpu_torch.ops.chunking import pick_short_chunks, word_chunks
+    from bjxa_tpu_torch.ops.filter import profile_gains
+
+    rng = np.random.default_rng(SEED + 19)
+    out = {}
+    floor = {"eager": cuda_ms(torch, lambda: cf.empty_launch(dev), inner=20),
+             "graph": graph_ms(lambda: cf.empty_launch(dev))}
+    phase(5, "time_launch_floor", gpu=repr(gpu), kernel="empty",
+          eager_ms=f"{floor['eager']:.6f}", graph_ms=f"{floor['graph']:.6f}")
+
+    # kernels 3-4: the samples entry at B=64, L=2 (its one-CTA regime)
+    samples = torch.from_numpy(
+        rng.integers(-(2**15), 2**15, size=(64, 32, 2)).astype(np.int16)
+    ).to(dev)
+    k0, k1, shift, _ = (t.contiguous() for t in profile_gains(
+        torch.from_numpy(rng.integers(0, 128, size=(64, 2)).astype(np.int32)
+                         ).to(dev)))
+    st2 = torch.from_numpy(
+        rng.integers(-(2**15), 2**15, size=(2, 2)).astype(np.int32)).to(dev)
+    for wo in (True, False):
+        def call(wo=wo):
+            return cf.adpcm_filter_kernel(samples, k0, k1, shift, st2,
+                                          with_output=wo)
+        e_ms = cuda_ms(torch, call, inner=20)
+        g_ms = graph_ms(call)
+        p_ms = cuda_ms(torch, lambda: cf.adpcm_filter_plain(
+            samples, k0, k1, shift, st2, with_output=wo), reps=3)
+        out[("filter_lanes", wo)] = {"eager_ms": e_ms, "ms": g_ms,
+                                     "plain_ms": p_ms}
+        phase(5, "time_filter_lanes", gpu=repr(gpu), shape="B=64,L=2",
+              with_output=wo,
+              eager_ms=f"{e_ms:.6f}", graph_ms=f"{g_ms:.6f}",
+              plain_ms=f"{p_ms:.6f}", launch_floor_graph_ms=f"{floor['graph']:.6f}")
+
+    # the fused kernel: the default chunks and the Bc sweep, 8-bit
+    fused, sweep = {}, {}
+    for B, C in SHORT_TIMED:
+        blocks, state = short_case(rng, B, C, 8)
+        bd, sd = torch.from_numpy(blocks).to(dev), torch.from_numpy(
+            state).to(dev)
+        K, Bc = pick_short_chunks(B)
+        for wo in (True, False):
+            def call(wo=wo, bd=bd, sd=sd):
+                return cf.fused_decode_short(bd, sd, bits=8, with_output=wo)
+            rounds = int(call()[3].item())
+            fused[(B, C, wo)] = {
+                "K": K, "Bc": Bc, "rounds": rounds,
+                "eager_ms": cuda_ms(torch, call, inner=20),
+                "ms": graph_ms(call)}
+        for bc in SHORT_BC_SWEEP:
+            chunks = -(-B // (B if bc == "B" else bc))
+            sK, sBc = word_chunks(B, chunks)
+            for wo in (True, False):
+                def call(wo=wo, bd=bd, sd=sd, chunks=chunks):
+                    return cf.fused_decode_short(bd, sd, bits=8, chunks=chunks,
+                                                 with_output=wo)
+                sweep[(B, C, bc, wo)] = {
+                    "K": sK, "Bc": sBc, "rounds": int(call()[3].item()),
+                    "ms": graph_ms(call)}
+        if (B, C) == (23, 2):  # the main path's shape: the plain version
+            out["plain_ms"] = cuda_ms(torch, lambda: cf.decode_short_plain(
+                bd, sd, bits=8), reps=3)
+    clock = sm_clock_mhz()
+    # the step's cycles: K = 1 at 61 blocks against 15 (stereo, output)
+    slope = ((sweep[(61, 2, "B", True)]["ms"] - sweep[(15, 2, "B", True)]["ms"])
+             / ((61 - 15) * 32))
+    step_cycles = slope * 1e-3 * clock * 1e6
+
+    def chain_floor(r):
+        passes = r["rounds"] + 1 if r["K"] > 1 else 1
+        return passes * r["Bc"] * 32 * step_cycles / (clock * 1e3)
+
+    for (B, C, wo), r in fused.items():
+        r["chain_floor_ms"] = chain_floor(r)
+        phase(5, "time_decode_short", gpu=repr(gpu),
+              shape=f"B={B},C={C},bits=8", with_output=wo, K=r["K"],
+              Bc=r["Bc"], rounds=r["rounds"], eager_ms=f"{r['eager_ms']:.6f}",
+              graph_ms=f"{r['ms']:.6f}",
+              chain_floor_ms=f"{r['chain_floor_ms']:.6f}",
+              launch_floor_graph_ms=f"{floor['graph']:.6f}")
+    for (B, C, bc, wo), r in sweep.items():
+        r["chain_floor_ms"] = chain_floor(r)
+        phase(5, "time_decode_short_bc", gpu=repr(gpu),
+              shape=f"B={B},C={C},bits=8", asked_bc=bc, with_output=wo,
+              K=r["K"], Bc=r["Bc"], rounds=r["rounds"],
+              graph_ms=f"{r['ms']:.6f}",
+              chain_floor_ms=f"{r['chain_floor_ms']:.6f}")
+    phase(5, "short_chain_model", gpu=repr(gpu), sm_clock_mhz=clock,
+          ms_per_step=f"{slope:.9f}", step_cycles=f"{step_cycles:.2f}",
+          launch_floor_eager_ms=f"{floor['eager']:.6f}",
+          launch_floor_graph_ms=f"{floor['graph']:.6f}")
+
+    # the short xa_to_wav end to end on both routes, and what each launches
+    def decode_new():
+        return xa_to_wav(short, device=dev)
+
+    def decode_old():
+        saved = tdecode.decode_arrays
+        tdecode.decode_arrays = old_short_route
+        try:
+            return xa_to_wav(short, device=dev)
+        finally:
+            tdecode.decode_arrays = saved
+
+    routes = {}
+    for name, fn in (("fused", decode_new), ("old", decode_old),
+                     ("old", decode_old), ("fused", decode_new)):
+        cf.LAUNCHES = cf.SHORT_LAUNCHES = 0
+        if fn() != short_wav:
+            raise AssertionError(f"short decode, {name} route: WAV != CPU")
+        counts = {"decode_short": cf.SHORT_LAUNCHES,
+                  "filter_lanes": cf.LAUNCHES}
+        want = {"decode_short": int(name == "fused"),
+                "filter_lanes": int(name == "old")}
+        if dev.type == "cuda" and counts != want:
+            raise AssertionError(f"short decode, {name} route: launched"
+                                 f" {counts}, want {want}")
+        times = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        routes.setdefault(name, {"launches": counts, "ms": []})
+        routes[name]["ms"].append(statistics.median(times))
+    for name, fn in (("fused", decode_new), ("old", decode_old)):
+        routes[name]["device"] = device_ops(fn)
+        phase(5, "time_short_xa_to_wav", gpu=repr(gpu), route=name,
+              stream="stereo8_23blocks", launches=routes[name]["launches"],
+              median_ms=[f"{m:.4f}" for m in routes[name]["ms"]],
+              device_ops=routes[name]["device"])
+    out.update(floor=floor, fused=fused, sweep=sweep, clock_mhz=clock,
+               step_cycles=step_cycles, routes=routes)
+    return out
+
+
 def stream_timings(torch, dev, gpu: str, payload, state, fmt) -> dict:
     """Phase 5 for the stream kernel at the 5-minute stream: with output
     and states only, against its chunked plain version and its byte bound,
@@ -1998,6 +2269,8 @@ def main() -> int:
         torch, dev, np.random.default_rng(SEED + 3))
     worst["decode_stream"] = check_stream_kernel(
         torch, dev, np.random.default_rng(SEED + 13))
+    worst["decode_short"] = check_short_kernel(
+        torch, dev, np.random.default_rng(SEED + 17))
     worst.update(check_measurement_kernels(
         torch, dev, np.random.default_rng(SEED + 11)))
     phase(2, "kernels_equal_plain", **worst)
@@ -2118,30 +2391,38 @@ def main() -> int:
     phase(4, "stream_card_equals_chunked_plain", K=sK, Bc=sBc,
           items=sK * fmt.channels, rounds=rounds)
 
-    # the main path in-process, counted: one stream-kernel launch for the
-    # long stream and no launch of the lanes kernel, the filter kernel for
-    # the short one
+    # the main path in-process, counted, each decode from counts set to 0:
+    # the long stream is one stream-kernel launch and no launch of the
+    # lanes kernel, the short one exactly one launch of the fused
+    # short-stream kernel and none of the others
     short = images["stereo8_23blocks"]
-    for mod in (cuda_decode, cuda_filter, cuda_encode):
-        mod.LAUNCHES = 0
-    cuda_decode.STREAM_LAUNCHES = 0
-    got_big = xa_to_wav(big, device=dev)
-    big_launches = (cuda_decode.STREAM_LAUNCHES, cuda_decode.LAUNCHES)
-    got_short = xa_to_wav(short, device=dev)
-    launches = {"decode_stream": cuda_decode.STREAM_LAUNCHES,
-                "filter_lanes": cuda_filter.LAUNCHES}
+
+    def counted_decode(image):
+        for mod in (cuda_decode, cuda_filter, cuda_encode):
+            mod.LAUNCHES = 0
+        cuda_decode.STREAM_LAUNCHES = cuda_filter.SHORT_LAUNCHES = 0
+        wav = xa_to_wav(image, device=dev)
+        return wav, {"decode_stream": cuda_decode.STREAM_LAUNCHES,
+                     "decode_lanes": cuda_decode.LAUNCHES,
+                     "decode_short": cuda_filter.SHORT_LAUNCHES,
+                     "filter_lanes": cuda_filter.LAUNCHES,
+                     "encode_search": cuda_encode.LAUNCHES}
+
+    got_big, big_counts = counted_decode(big)
+    got_short, short_counts = counted_decode(short)
     if got_big != ref["stereo6_5min"] or got_short != ref["stereo8_23blocks"]:
         raise AssertionError("in-process card WAV != CPU WAV")
-    if big_launches != (1, 0):
-        raise AssertionError(f"the long decode launched the stream kernel"
-                             f" {big_launches[0]} times and the lanes kernel"
-                             f" {big_launches[1]} times, want 1 and 0")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never ran:"
-                             f" {launches}")
+    if big_counts != dict.fromkeys(big_counts, 0) | {"decode_stream": 1}:
+        raise AssertionError(f"the long decode launched {big_counts}, want"
+                             " one stream-kernel launch and nothing else")
+    if short_counts != dict.fromkeys(short_counts, 0) | {"decode_short": 1}:
+        raise AssertionError(f"the short decode launched {short_counts},"
+                             " want one fused short-stream launch and"
+                             " nothing else")
+    launches = {"decode_stream": big_counts["decode_stream"],
+                "decode_short": short_counts["decode_short"]}
     phase(4, "main_path_launches", K=sK, Bc=sBc, items=sK * fmt.channels,
-          rounds=rounds, **launches, decode_lanes=cuda_decode.LAUNCHES,
-          encode_search=cuda_encode.LAUNCHES)
+          rounds=rounds, long=big_counts, short=short_counts)
     enc = encode_main_path(torch, dev, rng)
     seg_launches = segmented_counted(torch, dev, big, ref["stereo6_5min"],
                                      enc["big"], enc["ref"])
@@ -2171,24 +2452,7 @@ def main() -> int:
         phase(5, "time_decode_lanes", gpu=repr(gpu),
               shape=f"B={bt.shape[0]},L={bt.shape[2]},bits=6",
               with_output=wo, kernel_ms=f"{k:.6f}", plain_ms=f"{p:.6f}")
-    samples = torch.from_numpy(
-        rng.integers(-(2**15), 2**15, size=(64, 32, 2)).astype(np.int16)
-    ).to(dev)
-    gains = torch.from_numpy(
-        rng.integers(0, 128, size=(64, 2)).astype(np.int32)
-    ).to(dev)
-    from bjxa_tpu_torch.ops.filter import profile_gains
-
-    k0, k1, shift, _ = profile_gains(gains)
-    st2 = st[:2].contiguous()
-    for wo in (True, False):
-        k = cuda_ms(torch, lambda: cuda_filter.adpcm_filter_kernel(
-            samples, k0, k1, shift, st2, with_output=wo), inner=20)
-        p = cuda_ms(torch, lambda: cuda_filter.adpcm_filter_plain(
-            samples, k0, k1, shift, st2, with_output=wo), reps=5)
-        ms[("filter_lanes", wo)] = (k, p)
-        phase(5, "time_filter_lanes", gpu=repr(gpu), shape="B=64,L=2",
-              with_output=wo, kernel_ms=f"{k:.6f}", plain_ms=f"{p:.6f}")
+    short_ms = short_timings(torch, dev, gpu, short, ref["stereo8_23blocks"])
 
     stream = stream_timings(torch, dev, gpu, payload_d, state_d, fmt)
 
@@ -2277,6 +2541,10 @@ def main() -> int:
                               Bc * 32 * KC * DECODE_OPS_PER_SAMPLE),
         "filter_lanes": bound(2 * 64 * 32 * 2 * 2 + 3 * 64 * 2 * 4 + 2 * 2 * 8,
                               64 * 32 * 2 * FILTER_OPS_PER_SAMPLE),
+        # the short stream of the main path: 23 stereo 8-bit blocks, the
+        # blocks and state read, frames, end state and validity written
+        "decode_short": bound(23 * 2 * 33 + 23 * 32 * 2 * 2 + 2 * 8 * 2
+                              + 23 * 2, 23 * 32 * 2 * DECODE_OPS_PER_SAMPLE),
         "encode_search": encode_bound(eB, eL),
         "decode_words": bound(words_traffic(wB, wL, wbits),
                               wB * 32 * wL * DECODE_OPS_PER_SAMPLE),
@@ -2287,12 +2555,12 @@ def main() -> int:
         return {"ms": ms_plain[0], "plain_ms": ms_plain[1], "bound_ms": b_ms,
                 "bound_by": b_by}
 
-    def entry(name, replaces, by_path, timing, **more):
+    def entry(name, replaces, by_path, timing, source=None, **more):
         """One kernel of the summary.  ``library_ms`` is null throughout:
         no single PyTorch call computes a saturating two-tap recurrence, the
         80-candidate search or these probes."""
         return {"name": name, "route": "cuda",
-                "source": f"bjxa_tpu_torch/csrc/{name}.cu",
+                "source": f"bjxa_tpu_torch/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": worst[name],
                 "library_ms": None, **timing, **more}
@@ -2304,8 +2572,34 @@ def main() -> int:
               timed("decode_lanes", ms[("decode_lanes", True)]),
               also_replaces="bjxa_tpu/ops/pallas_decode.py:141"),
         entry("filter_lanes", "bjxa_tpu/ops/pallas_filter.py:36",
-              {"xa_to_wav": launches["filter_lanes"]},
-              timed("filter_lanes", ms[("filter_lanes", True)])),
+              {"short_decode_old_route":
+               short_ms["routes"]["old"]["launches"]["filter_lanes"]},
+              timed("filter_lanes", (
+                  short_ms[("filter_lanes", True)]["ms"],
+                  short_ms[("filter_lanes", True)]["plain_ms"])),
+              eager_ms=short_ms[("filter_lanes", True)]["eager_ms"],
+              states_only_ms=short_ms[("filter_lanes", False)]["ms"],
+              states_only_eager_ms=short_ms[("filter_lanes", False)][
+                  "eager_ms"],
+              launch_floor_ms=short_ms["floor"],
+              also_replaces="bjxa_tpu/ops/pallas_filter.py:69"),
+        entry("decode_short", "bjxa_tpu/ops/pallas_filter.py:36",
+              {"xa_to_wav": launches["decode_short"]},
+              timed("decode_short", (short_ms["fused"][(23, 2, True)]["ms"],
+                                     short_ms["plain_ms"])),
+              source="filter_lanes",
+              also_replaces="bjxa_tpu/ops/pallas_filter.py:69",
+              eager_ms=short_ms["fused"][(23, 2, True)]["eager_ms"],
+              states_only_ms=short_ms["fused"][(23, 2, False)]["ms"],
+              **{k: short_ms["fused"][(23, 2, True)][k]
+                 for k in ("K", "Bc", "rounds", "chain_floor_ms")},
+              launch_floor_ms=short_ms["floor"],
+              step_cycles=short_ms["step_cycles"],
+              sm_clock_mhz=short_ms["clock_mhz"],
+              bc_sweep={f"B={B},C={C},Bc={bc},out={wo}": r["ms"]
+                        for (B, C, bc, wo), r in short_ms["sweep"].items()},
+              xa_to_wav_ms={k: v["ms"] for k, v in
+                            short_ms["routes"].items()}),
         entry("encode_search", "bjxa_tpu/ops/pallas_encode.py:52",
               {"wav_to_xa": enc["launches"],
                "encode_wav_stream": seg_launches["encode_search"],

@@ -85,7 +85,7 @@ def test_decode_kernel_matches_plain(dev, bits, B, L):
             assert torch.equal(pcm, ppcm)
 
 
-@pytest.mark.parametrize("B,L", [(13, 1), (64, 2), (20, 300)])
+@pytest.mark.parametrize("B,L", [(13, 1), (64, 2), (20, 300), (64, 8192)])
 def test_filter_kernel_matches_plain(dev, B, L):
     rng = np.random.default_rng(B * L)
     samples = torch.from_numpy(
@@ -107,6 +107,95 @@ def test_filter_kernel_matches_plain(dev, B, L):
         assert torch.equal(end, pend)
         if wo:
             assert torch.equal(pcm, ppcm)
+
+
+def _short_case(bits, channels, B, seed):
+    """Fused-kernel inputs ``uint8[C, B, S]`` and ``int32[C, 2]`` on the
+    CPU: random bytes, factors 0-4, ranges 0-15, a random entry state; a
+    saturating first quarter (factor 1, range 0, the top-bits extremes)
+    and an invalid profile at block B // 2 from 3 blocks on."""
+    rng = np.random.default_rng(seed)
+    S = 4 * bits + 1
+    raw = rng.integers(0, 256, size=(channels, B, S), dtype=np.uint8)
+    raw[:, :, 0] = (rng.integers(0, 5, size=(channels, B)) << 4
+                    | rng.integers(0, 16, size=(channels, B))).astype(np.uint8)
+    if B >= 3:
+        raw[:, : max(1, B // 4), 0] = 0x10
+        raw[0, : max(1, B // 4), 1:] = 0x7F if bits == 8 else 0x77
+        raw[channels - 1, B // 2, 0] = 0x6B
+    state = rng.integers(-(2**15), 2**15, size=(channels, 2)).astype(np.int32)
+    return torch.from_numpy(raw), torch.from_numpy(state)
+
+
+@pytest.mark.parametrize("B", [1, 2, 7, 15, 17, 23, 25, 49, 61])
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("bits", [4, 6, 8])
+def test_short_kernel_matches_plains(dev, bits, channels, B):
+    """The fused short-stream kernel at each Bc of the sweep (1, 2, 4, 8 and
+    B: K = 1) and at its default, with and without output: frames, end
+    state and validity equal the sequential plain version's and the rounds
+    the chunked plain version's, one launch each."""
+    bt, st = _short_case(bits, channels, B, seed=B * 10 + bits + channels)
+    want = cuda_filter.decode_short_plain(bt, st, bits=bits)
+    bd, sd = bt.to(dev), st.to(dev)
+    for chunks in sorted({-(-B // bc) for bc in (1, 2, 4, 8, B)}) + [None]:
+        K = cuda_filter.pick_short_chunks(B)[0] if chunks is None else chunks
+        rounds = cuda_filter.decode_short_chunked_plain(
+            bt, st, bits=bits, chunks=K, with_output=False)[3]
+        for wo in (True, False):
+            before = cuda_filter.SHORT_LAUNCHES
+            frames, end, valid, r = cuda_filter.fused_decode_short(
+                bd, sd, bits=bits, chunks=chunks, with_output=wo)
+            torch.cuda.synchronize()
+            assert cuda_filter.SHORT_LAUNCHES == before + 1
+            assert torch.equal(end.cpu(), want[1])
+            assert torch.equal(valid.cpu(), want[2])
+            assert int(r.item()) == rounds
+            if wo:
+                assert torch.equal(frames.cpu(), want[0])
+            else:
+                assert frames is None
+
+
+def test_short_kernel_no_blocks(dev):
+    bt = torch.zeros((2, 0, 33), dtype=torch.uint8, device=dev)
+    st = torch.tensor([[5, -6], [7, -8]], dtype=torch.int32, device=dev)
+    frames, end, valid, r = cuda_filter.fused_decode_short(bt, st, bits=8)
+    torch.cuda.synchronize()
+    assert frames.shape == (0, 2) and valid.shape == (0, 2)
+    assert torch.equal(end, st) and int(r.item()) == 0
+
+
+def test_short_wrapper_rejects_bad_inputs(dev):
+    bt, st = (t.to(dev) for t in _short_case(6, 2, 5, seed=0))
+    with pytest.raises(ValueError):
+        cuda_filter.fused_decode_short(bt, st, bits=4)
+    with pytest.raises(TypeError):
+        cuda_filter.fused_decode_short(bt, st.long(), bits=6)
+    with pytest.raises(ValueError):
+        cuda_filter.fused_decode_short(bt, st.cpu(), bits=6)
+    with pytest.raises(ValueError):
+        cuda_filter.fused_decode_short(bt.transpose(0, 1), st, bits=6)
+    # more blocks than one CTA's shared memory holds: refused, no fallback
+    big = torch.zeros((2, 1000, 25), dtype=torch.uint8, device=dev)
+    before = cuda_filter.SHORT_LAUNCHES
+    with pytest.raises(RuntimeError):
+        cuda_filter.fused_decode_short(big, st, bits=6)
+    assert cuda_filter.SHORT_LAUNCHES == before
+
+
+def test_short_xa_to_wav_is_one_fused_launch(dev):
+    """A short stream's whole decode on the card is one launch of the
+    fused kernel: the samples, lanes and stream kernels never launch."""
+    data = _xa(8, 2, 23, seed=23)
+    counters = (
+        (cuda_filter, "SHORT_LAUNCHES"), (cuda_filter, "LAUNCHES"),
+        (cuda_decode, "LAUNCHES"), (cuda_decode, "STREAM_LAUNCHES"))
+    before = [getattr(m, n) for m, n in counters]
+    wav = xa_to_wav(data, device=dev)
+    after = [getattr(m, n) for m, n in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0, 0]
+    assert wav == xa_to_wav(data, device="cpu")
 
 
 def test_kernel_wrappers_reject_bad_inputs(dev):
@@ -145,18 +234,19 @@ def _xa(bits, channels, blocks, seed):
 ])
 def test_decode_bytes_card_matches_cpu(dev, bits, channels, blocks, kernel):
     """A long stream takes exactly one stream-kernel launch and no launch
-    of the lanes kernel; a short one takes the filter kernel."""
+    of the lanes kernel; a short one exactly one launch of the fused
+    short-stream kernel and none of the others."""
     data = _xa(bits, channels, blocks, seed=blocks)
     fmt = parse_xa_header(data)
     before = (cuda_decode.STREAM_LAUNCHES, cuda_decode.LAUNCHES,
-              cuda_filter.LAUNCHES)
+              cuda_filter.LAUNCHES, cuda_filter.SHORT_LAUNCHES)
     got = decode_bytes(data[32:], fmt, device=dev)
     after = (cuda_decode.STREAM_LAUNCHES, cuda_decode.LAUNCHES,
-             cuda_filter.LAUNCHES)
+             cuda_filter.LAUNCHES, cuda_filter.SHORT_LAUNCHES)
     if kernel == "decode":
-        assert after == (before[0] + 1, before[1], before[2])
+        assert after == (before[0] + 1, before[1], before[2], before[3])
     else:
-        assert after[:2] == before[:2] and after[2] > before[2]
+        assert after == (before[0], before[1], before[2], before[3] + 1)
     np.testing.assert_array_equal(
         got, decode_bytes(data[32:], fmt, device="cpu")
     )
@@ -784,11 +874,11 @@ def test_segmented_decode_card_matches_whole_file(dev, bits, channels,
                                                   blocks, seg):
     data = _xa(bits, channels, blocks, seed=blocks + seg)
     fmt = parse_xa_header(data)
-    before = cuda_decode.STREAM_LAUNCHES + cuda_filter.LAUNCHES
+    before = cuda_decode.STREAM_LAUNCHES + cuda_filter.SHORT_LAUNCHES
     stream_before = cuda_decode.STREAM_LAUNCHES
     parts = list(iter_decode_segments(io.BytesIO(data[32:]).read, fmt,
                                       device=dev, segment_blocks=seg))
-    assert cuda_decode.STREAM_LAUNCHES + cuda_filter.LAUNCHES > before
+    assert cuda_decode.STREAM_LAUNCHES + cuda_filter.SHORT_LAUNCHES > before
     assert len(parts) == -(-blocks // seg)
     if seg > 64:  # every segment is long: one stream launch each
         assert cuda_decode.STREAM_LAUNCHES - stream_before == len(parts)
