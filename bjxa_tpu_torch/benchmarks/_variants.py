@@ -1,11 +1,15 @@
 """What the load-variant and store-variant scripts share: the store forms,
-the launch of ``csrc/decode_variants.cu`` and the repack of plain PCM into
-a store form."""
+the launch of ``csrc/decode_variants.cu`` (the words kernel's chunk schedule
+and launch with one load or store policy swapped) and the repack of plain
+PCM into a store form."""
 
 from __future__ import annotations
 
 import torch
 
+from bjxa_tpu_torch.ops.chunking import word_chunks
+from bjxa_tpu_torch.ops.cuda_decode import grid_ctas
+from bjxa_tpu_torch.ops.cuda_decode_words import pick_word_chunks
 from bjxa_tpu_torch.ops.decode import _sign_extend_32
 from bjxa_tpu_torch.ops.tables import BLOCK_SAMPLES
 
@@ -43,14 +47,25 @@ def pair_to_i16(out: torch.Tensor) -> torch.Tensor:
 
 
 def launch_variant(name: str, load: str, store: str, first: torch.Tensor,
-                   words: torch.Tensor | None, state: torch.Tensor):
+                   words: torch.Tensor | None, state: torch.Tensor, *,
+                   chunks: int | None = None):
     """Check the inputs and launch one instantiation of the variants
-    kernel on their CUDA device.  ``first`` is ``blocks_t uint8[B, 33, L]``
-    (load ``u8``) or ``prof uint8[B, L]`` beside ``words int32[B, 8, L]``
-    (load ``w32``).  Returns ``(out, end int32[L, 2])``."""
+    kernel on their CUDA device: one cooperative launch, no host sync.
+    ``first`` is ``blocks_t uint8[B, 33, L]`` (load ``u8``) or ``prof
+    uint8[B, L]`` beside ``words int32[B, 8, L]`` (load ``w32``).  K is
+    the words kernel's: ``chunks`` forces it (tests and the smoke run),
+    else :func:`~bjxa_tpu_torch.ops.cuda_decode_words.pick_word_chunks`
+    chooses it; the grid is :func:`~bjxa_tpu_torch.ops.cuda_decode.grid_ctas` of the
+    instantiation's occupancy.
+
+    Returns ``(out, end int32[L, 2], rounds int32[1])``, ``rounds`` left on
+    the card where the kernel wrote its round count (0 at K = 1).  A refused
+    launch or a failed build raises; nothing falls back.
+    """
     from bjxa_tpu_torch.ops._build import check_launch, library
 
-    if store not in STORES or (load, store) == ("w32", "i32"):
+    if store not in STORES or load not in LOADS or (load, store) == (
+            "w32", "i32"):
         raise ValueError(f"{name}: no {load} x {store} instantiation")
     code, rows, dtype = STORES[store]
     if load == "u8":
@@ -80,12 +95,21 @@ def launch_variant(name: str, load: str, store: str, first: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
     dev = first.device
+    if chunks is None:
+        chunks = pick_word_chunks(
+            B, L, torch.cuda.get_device_properties(dev).multi_processor_count)
+    K, Bc = word_chunks(B, chunks)
     out = torch.empty((B, rows, L), dtype=dtype, device=dev)
     end = torch.empty((L, 2), dtype=torch.int32, device=dev)
+    scratch = torch.empty(4 + (4 * K * L if K > 1 else 0), dtype=torch.int32,
+                          device=dev)
+    ctas = grid_ctas(K * L, "bjxa_decode_variant_occupancy", LOADS[load],
+                     code, device=dev)
     err = library().bjxa_decode_variant(
         first.data_ptr(), words.data_ptr() if words is not None else None,
-        state.data_ptr(), out.data_ptr(), end.data_ptr(), B, L, LOADS[load],
-        code, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        state.data_ptr(), out.data_ptr(), end.data_ptr(), scratch.data_ptr(),
+        B, L, K, Bc, LOADS[load], code, ctas, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(err, "bjxa_decode_variant")
-    return out, end
+    return out, end, scratch[2:3]

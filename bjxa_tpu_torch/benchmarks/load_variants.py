@@ -14,13 +14,19 @@ crossed with the store forms
                (``(s0 & 0xFFFF) | (s1 << 16)``); half the stores
 
 The kernel, ``csrc/decode_variants.cu`` (its ``w32`` instantiations),
-replaces ``bench_load_variants._kernel``; its production counterparts are
-the words kernel (``w32`` + ``i16``) and the lanes kernel.  Every variant is
-checked bit-exact against both before it is timed.
+replaces ``bench_load_variants._kernel``.  It is the words kernel's chunk
+schedule and chunk body (``csrc/decode_chunk.cuh``) with the store policy
+swapped, so ``w32`` + ``i16`` is the words kernel itself, and it launches
+at the words kernel's K (:func:`decode_w32_chunked` forces K and returns
+the rounds); its production counterparts are the words kernel and the
+lanes kernel.  Every variant is checked bit-exact against both before it
+is timed.
 
     python -m bjxa_tpu_torch.benchmarks.load_variants
 
-Env: ``BENCH_LANES`` (32,768), ``BENCH_BLOCKS`` (64), ``BENCH_REPS``.  One
+Env: ``BENCH_LANES`` (32,768), ``BENCH_BLOCKS`` (64), ``BENCH_REPS``; a
+corpus batch, the shape corpus runs launch, is ``BENCH_LANES=32
+BENCH_BLOCKS=20736``.  One
 JSON line per variant and per production kernel, in Gsamples/s.
 :func:`~bjxa_tpu_torch.ops.decode.pack_words_from_lanes` is the port of
 ``pack_words``.
@@ -41,6 +47,7 @@ from bjxa_tpu_torch.benchmarks._common import (
 from bjxa_tpu_torch.ops.cuda_decode import fused_decode_lanes
 from bjxa_tpu_torch.ops.cuda_decode_words import (
     fused_decode_words,
+    fused_decode_words_chunked_plain,
     fused_decode_words_plain,
 )
 from bjxa_tpu_torch.ops.decode import pack_words_from_lanes
@@ -63,6 +70,43 @@ def decode_w32_plain(prof: torch.Tensor, words: torch.Tensor,
     return _variants.repack(pcm, store), end
 
 
+def decode_w32_chunked_plain(prof: torch.Tensor, words: torch.Tensor,
+                             state: torch.Tensor, *, store: str,
+                             chunks: int):
+    """Plain PyTorch version of the kernel's schedule at ``chunks``: the
+    words kernel's chunked plain version
+    (:func:`fused_decode_words_chunked_plain`), then the repack into the
+    store form.  On any device.
+
+    Returns ``(out, end int32[L, 2], rounds)``, ``rounds`` an int."""
+    if store not in STORES:
+        raise ValueError(f"decode_w32: no w32 x {store} instantiation")
+    pcm, end, rounds = fused_decode_words_chunked_plain(
+        prof, words, state, bits=_variants.BITS, chunks=chunks)
+    return _variants.repack(pcm, store), end, rounds
+
+
+def decode_w32_chunked(prof: torch.Tensor, words: torch.Tensor,
+                       state: torch.Tensor, *, store: str,
+                       chunks: int | None = None):
+    """Launch a ``w32`` variant on CUDA tensors (one cooperative launch, no
+    host sync) at the words kernel's K, or at ``chunks`` where given.
+
+    Returns ``(out, end int32[L, 2], rounds int32[1])``, ``rounds`` left on
+    the card.  A non-CUDA tensor, a refused launch or a failed build
+    raises; nothing falls back.
+    """
+    global LAUNCHES
+    if words.device.type != "cuda":
+        raise ValueError(f"decode_w32: no kernel for device {words.device}")
+    if store not in STORES:
+        raise ValueError(f"decode_w32: no w32 x {store} instantiation")
+    out = _variants.launch_variant("decode_w32", "w32", store, prof, words,
+                                   state, chunks=chunks)
+    LAUNCHES += 1
+    return out
+
+
 def decode_w32(prof: torch.Tensor, words: torch.Tensor, state: torch.Tensor,
                *, store: str):
     """Decode 8-bit packed-words blocks, storing in form ``store``.
@@ -73,20 +117,13 @@ def decode_w32(prof: torch.Tensor, words: torch.Tensor, state: torch.Tensor,
 
     Returns ``(out, end int32[L, 2])`` with ``out`` ``int16[B, 32, L]`` or
     ``int32[B, 16, L]``.  Routes by the tensors' device alone: a CPU tensor
-    takes :func:`decode_w32_plain`, a CUDA tensor launches the kernel,
-    anything else raises.
+    takes :func:`decode_w32_plain`, a CUDA tensor launches the kernel
+    (:func:`decode_w32_chunked`), anything else raises.
     """
-    global LAUNCHES
     if words.device.type == "cpu":
         return decode_w32_plain(prof, words, state, store=store)
-    if words.device.type != "cuda":
-        raise ValueError(f"decode_w32: no kernel for device {words.device}")
-    if store not in STORES:
-        raise ValueError(f"decode_w32: no w32 x {store} instantiation")
-    out = _variants.launch_variant("decode_w32", "w32", store, prof, words,
-                                   state)
-    LAUNCHES += 1
-    return out
+    out, end, _rounds = decode_w32_chunked(prof, words, state, store=store)
+    return out, end
 
 
 def check_variants(blocks_t, prof, words, state) -> None:

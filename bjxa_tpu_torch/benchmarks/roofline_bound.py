@@ -1,7 +1,8 @@
 """Measured roofline denominator of the packed-words decode: a load/store
-only kernel at the words decode's shape, layout and access pattern, the
-filter replaced by one add per store, giving the bandwidth a memory-bound
-kernel of identical traffic sustains on this card.
+only kernel at the words decode's shape, layout, launch and loads (the
+words kernel's ``cp.async`` ring at K = 1), the filter replaced by one add
+per store, giving the bandwidth a memory-bound kernel of identical traffic
+sustains on this card.
 
 Port of ``benchmarks/bench_roofline_bound.py``.  The kernel,
 ``csrc/loadstore_bound.cu``, replaces its ``_null_kernel``; the words decode
@@ -28,6 +29,7 @@ from bjxa_tpu_torch.benchmarks._common import (
     env_int,
     time_ms,
 )
+from bjxa_tpu_torch.ops.cuda_decode import grid_ctas
 from bjxa_tpu_torch.ops.tables import BLOCK_SAMPLES
 
 #: Launches of the load/store kernel in this process (plain runs never count).
@@ -89,9 +91,12 @@ def _launch(prof, words, state):
     end = torch.empty((L, 2), dtype=torch.int32, device=dev)
     if L == 0:
         return out, end
+    # the words kernel's launch at K = 1: a persistent cooperative grid
+    scratch = torch.empty(4, dtype=torch.int32, device=dev)
+    ctas = grid_ctas(L, "bjxa_loadstore_bound_occupancy", bits, device=dev)
     err = library().bjxa_loadstore_bound(
         prof.data_ptr(), words.data_ptr(), state.data_ptr(), out.data_ptr(),
-        end.data_ptr(), B, L, bits, dev.index,
+        end.data_ptr(), scratch.data_ptr(), B, L, bits, ctas, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check_launch(err, "bjxa_loadstore_bound")

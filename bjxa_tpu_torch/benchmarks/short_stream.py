@@ -1,35 +1,48 @@
-"""The short-stream path and the kernels that share its schedule, timed in
-one process against the package of any checkout: run it on a parent
-checkout and on this one, in turns, inside one call to compare two
-versions on one card.
+"""The parent-against-change A/B harness of the port's kernels: the
+short-stream path and every kernel that shares its chunk schedule or the
+words kernel's chunk body, timed in one process against the package of any
+checkout.  Run it on a parent checkout and on this one, in turns, inside
+one call to compare two versions on one card.
 
     python bjxa_tpu_torch/benchmarks/short_stream.py [--root DIR]
 
 ``--root`` is the checkout whose ``bjxa_tpu_torch`` is imported (this
 one by default); run as a file, not with ``-m``, so that the package is
-imported from there.  It builds that checkout's kernels and times, on
-seeded random inputs with valid profiles:
+imported from there.  It builds that checkout's kernels and times, through
+its public entry points, on seeded random inputs with valid profiles:
 
 * the samples entry (``adpcm_filter_kernel``, kernels 3-4) at B=64, L=2,
   with output and states only, in an eager window of launches (what a
   caller pays a launch, host included) and in a CUDA graph (the device);
-* the stream kernel at the 5-minute stream (B=413,438, stereo, 6-bit) and
-  the words kernel at the ``bench.py`` headline (B=64, L=32,768, 8-bit)
-  and a corpus batch (B=20,736, L=32, 8-bit), eager windows;
+* the stream kernel at the 5-minute stream (B=413,438, stereo, 6-bit), and
+  the fused short-stream kernel on 23 stereo 8-bit blocks in a CUDA graph;
+* the words kernel (kernels 5-6) at 4, 6 and 8 bits, and the five
+  load/store variants of ``csrc/decode_variants.cu`` (kernels 8 and 10) on
+  the 8-bit bytes, at the ``bench.py`` headline (B=64, L=32,768); on a
+  corpus batch (B=20,736, L=32) the words kernel at 4, 6 and 8 bits,
+  ``w32+i16`` and ``u8+i16``; the load/store bound (kernel 9) at the
+  headline at 4, 6 and 8 bits; the search kernel (kernel 7) at B=101,
+  L=8,192, 6-bit; eager windows;
 * ``xa_to_wav`` of a 23-block stereo 8-bit stream, host clock,
   synchronised, median of 21, and the device kernels and copies of one
   such decode from ``torch.profiler``.
 
-Eager windows use the checkout's own ``benchmarks/_common.time_ms``.
-Needs the card.  Prints one JSON line with the card's name and power
-limit.  Env: ``BENCH_REPS`` (7).
+Beside each kernel's time it prints the SHA-1 of its outputs, so two
+checkouts' runs show whether any byte moved, and ptxas' registers of each
+instantiation of the words kernel (``words_registers``, from the build's
+log).  The words layout is packed from the lanes by the checkout's own
+``ops.decode.pack_words_from_lanes``.  Eager windows use the checkout's
+own ``benchmarks/_common.time_ms``.  Needs the card.  Prints one JSON line
+with the card's name and power limit.  Env: ``BENCH_REPS`` (7).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -105,6 +118,44 @@ def device_ops(fn) -> dict | str:
             "d2h": sum(n.startswith("Memcpy DtoH") for n in names)}
 
 
+def digest(*tensors) -> str:
+    """SHA-1 of the tensors' bytes, in order (None skipped)."""
+    h = hashlib.sha1()
+    for t in tensors:
+        if t is not None:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def lanes_inputs(rng, B: int, L: int, bits: int, dev, pack):
+    """``(blocks_t uint8[B, 4*bits + 1, L], prof, words, state)``: random
+    payload, valid profiles (factor 0-4, range 0-15), int16-range states;
+    the words layout packed from the same bytes by ``pack`` (the
+    checkout's ``pack_words_from_lanes``)."""
+    blocks_t = rng.integers(0, 256, size=(B, 4 * bits + 1, L),
+                            dtype=np.uint8)
+    blocks_t[:, 0, :] = (rng.integers(0, 5, size=(B, L)) << 4
+                         | rng.integers(0, 16, size=(B, L))).astype(np.uint8)
+    state = rng.integers(-(2**15), 2**15, size=(L, 2)).astype(np.int32)
+    blocks_t = torch.from_numpy(blocks_t).to(dev)
+    prof, words = pack(blocks_t, bits=bits)
+    return blocks_t, prof, words, torch.from_numpy(state).to(dev)
+
+
+def words_registers(log: str) -> dict:
+    """``{"<bits>,<with output>": registers}`` of the words kernel's
+    instantiations in a ``-Xptxas -v`` log."""
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"decode_words_kernelILi(\d+)ELb(\d)EE", line)
+            key = f"{m.group(1)},{m.group(2)}" if m else None
+        m = re.search(r"Used (\d+) registers", line)
+        if key is not None and m:
+            out[key] = int(m.group(1))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=HERE)
@@ -115,9 +166,12 @@ def main(argv=None) -> int:
     root = args.root.resolve()
     sys.path.insert(0, str(root))
     import bjxa_tpu_torch as pkg
+    from bjxa_tpu_torch.benchmarks import (load_variants, roofline_bound,
+                                           store_variants)
     from bjxa_tpu_torch.benchmarks._common import time_ms
     from bjxa_tpu_torch.ops import _build, cuda_decode, cuda_decode_words
-    from bjxa_tpu_torch.ops import cuda_filter
+    from bjxa_tpu_torch.ops import cuda_encode, cuda_filter
+    from bjxa_tpu_torch.ops.decode import pack_words_from_lanes
     from bjxa_tpu_torch.ops.filter import profile_gains
 
     if Path(pkg.__file__).resolve().parents[1] != root:
@@ -127,7 +181,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.library()
     out = {"metric": "short_stream", "root": str(root),
-           "build_s": time.perf_counter() - t0}
+           "build_s": time.perf_counter() - t0,
+           "words_registers": words_registers(
+               _build.library_path().with_suffix(".log").read_text())}
     rng = np.random.default_rng(20261017)
 
     samples = torch.from_numpy(rng.integers(
@@ -154,27 +210,64 @@ def main(argv=None) -> int:
     payload = payload.reshape(-1)
     state = torch.from_numpy(rng.integers(
         -(2**15), 2**15, size=(C, 2)).astype(np.int32)).to(dev)
+
+    def timed(name, fn, inner=20):
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = time_ms(fn, dev, reps=reps, inner=inner)
+        out[f"{name}_sha1"] = digest(*res)
+
     for wo in (True, False):
-        out[f"stream{'' if wo else '_states'}_ms"] = time_ms(
-            lambda wo=wo: cuda_decode.fused_decode_stream(
-                payload, state, bits=bits, channels=C, with_output=wo),
-            dev, reps=reps, inner=20)
+        timed(f"stream{'' if wo else '_states'}",
+              lambda wo=wo: cuda_decode.fused_decode_stream(
+                  payload, state, bits=bits, channels=C, with_output=wo))
+
+    short = rng.integers(0, 256, size=(2, 23, 33), dtype=np.uint8)
+    short[:, :, 0] = (rng.integers(0, 5, size=(2, 23)) << 4
+                      | rng.integers(0, 13, size=(2, 23))).astype(np.uint8)
+    blocks = torch.from_numpy(short).to(dev)
+
+    def fused():
+        return cuda_filter.fused_decode_short(blocks, state, bits=8)
+
+    res = fused()
+    torch.cuda.synchronize()
+    out["short_graph_ms"] = graph_ms(fused, reps)
+    out["short_sha1"] = digest(*res)
 
     for label, (B, L) in (("headline", (64, 32_768)),
                           ("corpus_batch", (20_736, 32))):
-        prof = torch.from_numpy((rng.integers(0, 5, size=(B, L)) << 4
-                                 | rng.integers(0, 16, size=(B, L))).astype(
-                                     np.uint8)).to(dev)
-        words = torch.from_numpy(rng.integers(
-            -(2**31), 2**31, size=(B, 8, L), dtype=np.int64).astype(
-                np.int32)).to(dev)
-        wstate = torch.from_numpy(rng.integers(
-            -(2**15), 2**15, size=(L, 2)).astype(np.int32)).to(dev)
+        for nbits in (4, 6):
+            _bt, prof, words, wstate = lanes_inputs(
+                rng, B, L, nbits, dev, pack_words_from_lanes)
+            for wo in (True, False):
+                timed(f"words{nbits}_{label}{'' if wo else '_states'}",
+                      lambda wo=wo: cuda_decode_words.fused_decode_words(
+                          prof, words, wstate, bits=nbits, with_output=wo))
+        bt, prof, words, wstate = lanes_inputs(rng, B, L, 8, dev,
+                                               pack_words_from_lanes)
         for wo in (True, False):
-            out[f"words_{label}{'' if wo else '_states'}_ms"] = time_ms(
-                lambda wo=wo: cuda_decode_words.fused_decode_words(
-                    prof, words, wstate, bits=8, with_output=wo),
-                dev, reps=reps, inner=20)
+            timed(f"words_{label}{'' if wo else '_states'}",
+                  lambda wo=wo: cuda_decode_words.fused_decode_words(
+                      prof, words, wstate, bits=8, with_output=wo))
+        headline = label == "headline"
+        for s in (load_variants.STORES if headline else ("i16",)):
+            timed(f"{label}_w32+{s}", lambda s=s: load_variants.decode_w32(
+                prof, words, wstate, store=s))
+        for m in (store_variants.MODES if headline else ("i16",)):
+            timed(f"{label}_u8+{m}",
+                  lambda m=m: store_variants.decode_variant(bt, wstate,
+                                                            mode=m))
+    for nbits in (4, 6, 8):
+        prof, words, wstate = roofline_bound.words_inputs(5, 64, 32_768,
+                                                          nbits, dev)
+        timed(f"loadstore_bound_{nbits}", lambda: roofline_bound.null_decode(
+            prof, words, wstate))
+    pcm = torch.from_numpy(rng.integers(
+        -(2**15), 2**15, size=(101, 32, 8192)).astype(np.int16)).to(dev)
+    zeros = torch.zeros((8192, 2), dtype=torch.int32, device=dev)
+    timed("search", lambda: cuda_encode.encode_search_lanes(pcm, zeros,
+                                                            bits=6), inner=3)
 
     xa = short_xa(pkg, rng)
     want = pkg.xa_to_wav(xa, device="cpu")

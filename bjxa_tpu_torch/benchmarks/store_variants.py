@@ -12,13 +12,18 @@ a whole; this measures store forms to find where that cost sits:
          int16 view is the natural ``[B, 32, L]`` sample order per lane.
 
 The kernel, ``csrc/decode_variants.cu`` (its ``u8`` instantiations: one byte
-load per sample from ``uint8[B, 33, L]``), replaces
-``bench_store_variants._kernel``.  Every variant is checked bit-exact
-against the production lanes kernel before it is timed.
+a sample from ``uint8[B, 33, L]``, each warp's 32 bytes of a row staged
+through the words kernel's ``cp.async`` ring), replaces
+``bench_store_variants._kernel``.  It runs the words kernel's chunk
+schedule at its K (:func:`decode_variant_chunked` forces K and returns the
+rounds).  Every variant is checked bit-exact against the production lanes
+kernel before it is timed.
 
     python -m bjxa_tpu_torch.benchmarks.store_variants
 
-Env: ``BENCH_LANES`` (32,768), ``BENCH_BLOCKS`` (64), ``BENCH_REPS``.  One
+Env: ``BENCH_LANES`` (32,768), ``BENCH_BLOCKS`` (64), ``BENCH_REPS``; a
+corpus batch, the shape corpus runs launch, is ``BENCH_LANES=32
+BENCH_BLOCKS=20736``.  One
 JSON line per variant, in Gsamples/s.
 """
 
@@ -35,6 +40,7 @@ from bjxa_tpu_torch.benchmarks._common import (
     time_ms,
 )
 from bjxa_tpu_torch.ops.cuda_decode import (
+    chunked_lanes_plain,
     fused_decode_lanes,
     fused_decode_lanes_plain,
 )
@@ -54,6 +60,40 @@ def decode_variant_plain(blocks_t: torch.Tensor, state: torch.Tensor, *,
     return _variants.repack(pcm, mode), end
 
 
+def decode_variant_chunked_plain(blocks_t: torch.Tensor,
+                                 state: torch.Tensor, *, mode: str,
+                                 chunks: int):
+    """Plain PyTorch version of the kernel's schedule at ``chunks``:
+    :func:`~bjxa_tpu_torch.ops.cuda_decode.chunked_lanes_plain` (the words
+    kernel's schedule over lane-major blocks), then the repack into the
+    store form.  On any device.
+
+    Returns ``(out, end int32[L, 2], rounds)``, ``rounds`` an int."""
+    pcm, end, rounds = chunked_lanes_plain(blocks_t, state,
+                                           bits=_variants.BITS, chunks=chunks)
+    return _variants.repack(pcm, mode), end, rounds
+
+
+def decode_variant_chunked(blocks_t: torch.Tensor, state: torch.Tensor, *,
+                           mode: str, chunks: int | None = None):
+    """Launch a ``u8`` variant on CUDA tensors (one cooperative launch, no
+    host sync) at the words kernel's K, or at ``chunks`` where given.
+
+    Returns ``(out, end int32[L, 2], rounds int32[1])``, ``rounds`` left on
+    the card.  A non-CUDA tensor, a refused launch or a failed build
+    raises; nothing falls back.
+    """
+    global LAUNCHES
+    if blocks_t.device.type != "cuda":
+        raise ValueError(
+            f"decode_variant: no kernel for device {blocks_t.device}"
+        )
+    out = _variants.launch_variant("decode_variant", "u8", mode, blocks_t,
+                                   None, state, chunks=chunks)
+    LAUNCHES += 1
+    return out
+
+
 def decode_variant(blocks_t: torch.Tensor, state: torch.Tensor, *,
                    mode: str):
     """Decode 8-bit lane-major raw blocks, storing in form ``mode``.
@@ -65,19 +105,13 @@ def decode_variant(blocks_t: torch.Tensor, state: torch.Tensor, *,
     Returns ``(out, end int32[L, 2])`` with ``out`` ``int16[B, 32, L]``,
     ``int32[B, 32, L]`` or ``int32[B, 16, L]``.  Routes by the tensors'
     device alone: a CPU tensor takes :func:`decode_variant_plain`, a CUDA
-    tensor launches the kernel, anything else raises.
+    tensor launches the kernel (:func:`decode_variant_chunked`), anything
+    else raises.
     """
-    global LAUNCHES
     if blocks_t.device.type == "cpu":
         return decode_variant_plain(blocks_t, state, mode=mode)
-    if blocks_t.device.type != "cuda":
-        raise ValueError(
-            f"decode_variant: no kernel for device {blocks_t.device}"
-        )
-    out = _variants.launch_variant("decode_variant", "u8", mode, blocks_t,
-                                   None, state)
-    LAUNCHES += 1
-    return out
+    out, end, _rounds = decode_variant_chunked(blocks_t, state, mode=mode)
+    return out, end
 
 
 def check_variants(blocks_t, state) -> None:

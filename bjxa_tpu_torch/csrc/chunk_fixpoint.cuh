@@ -1,7 +1,8 @@
 // The exact chunk fixed point of the chunked decoders, solved inside ONE
 // launch, and the host side of the cooperative launch.  One schedule, two
-// scopes: the grid of a cooperative launch (decode_words.cu,
-// decode_stream.cu) or one CTA (filter_lanes.cu's short-stream decode).
+// scopes: the grid of a cooperative launch (decode_words.cu and its
+// ablations decode_variants.cu and loadstore_bound.cu, decode_stream.cu) or
+// one CTA (filter_lanes.cu's short-stream decode).
 //
 // Each of `lanes` lanes has B blocks, cut into K chunks of Bc blocks (the
 // last one may be short, none is empty); a work item is (chunk k, lane l) at
@@ -186,30 +187,45 @@ inline cudaError_t coop_device(int device) {
   return coop ? cudaSuccess : cudaErrorNotSupported;
 }
 
-// CTAs of kThreads of the cooperative kernel `fn` that fit on one SM at
-// once (the persistent grid is this times the SM count at most), or minus
-// a CUDA error code.
-inline int coop_occupancy(const void* fn, int device) {
+// Let `fn` take `smem` bytes of dynamic shared memory (an opt-in above the
+// 48 KB default); 0 or the CUDA error, with none left behind.
+inline cudaError_t allow_smem(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+// CTAs of kThreads of the cooperative kernel `fn`, with `smem` bytes of
+// dynamic shared memory each, that fit on one SM at once (the persistent
+// grid is this times the SM count at most), or minus a CUDA error code.
+inline int coop_occupancy(const void* fn, int device, size_t smem = 0) {
   if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = coop_device(device);
+  if (err == cudaSuccess) err = allow_smem(fn, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, kThreads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, kThreads,
+                                                      smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return ctas;
 }
 
-// One cooperative launch of `fn` over `ctas` CTAs of kThreads on `stream`,
-// without synchronising.  A refused launch (too many CTAs to be
-// co-resident, no cooperative launch on the device) returns its error, and
-// leaves no error behind for cudaGetLastError().
+// One cooperative launch of `fn` over `ctas` CTAs of kThreads, with `smem`
+// bytes of dynamic shared memory each, on `stream`, without synchronising.
+// A refused launch (too many CTAs to be co-resident, no cooperative launch
+// on the device) returns its error, and leaves no error behind for
+// cudaGetLastError().
 inline int coop_launch(const void* fn, void** args, int ctas, int device,
-                       void* stream) {
+                       void* stream, size_t smem = 0) {
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = coop_device(device);
+  if (err == cudaSuccess) err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchCooperativeKernel(fn, dim3(ctas), dim3(kThreads), args, 0,
-                                    static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(fn, dim3(ctas), dim3(kThreads), args,
+                                    smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear the launch error before returning it
     return static_cast<int>(err);

@@ -32,75 +32,19 @@
 // copies: a warp's are 128 contiguous bytes), and its next profile byte in
 // a register, while the current block is filtered; state stays in
 // registers.  No thread reads another's slots, so the ring needs no CTA
-// barrier.
+// barrier.  The chunk body is decode_chunk.cuh's run_chunk under its
+// LoadW32 and StoreI16 policies, the body the load and store ablations of
+// decode_variants.cu swap one policy of.
 //
 // Bound: memory bytes at the headline (bits/8 + 1/32 bytes read and 2
 // written per sample, ~203 MB a launch at B = 64, L = 32768, 8-bit); on a
 // corpus batch the rounds re-read the input, (rounds + 1) reads in all.
-#include <cuda_pipeline_primitives.h>
-
 #include "adpcm.cuh"
 #include "chunk_fixpoint.cuh"
+#include "decode_chunk.cuh"
 
 namespace bjxa {
 namespace {
-
-constexpr int kStages = 4;  // blocks of words a thread has in flight
-
-// Decode blocks [b0, b0 + n) of lane l from (p0, p1) in place.
-template <int BITS, bool WITH_OUTPUT>
-__device__ __forceinline__ void run_chunk(
-    const uint8_t* __restrict__ prof, const int32_t* __restrict__ words,
-    int16_t* __restrict__ pcm, size_t lanes, size_t l, long long b0, int n,
-    uint32_t (*ring)[BITS][kThreads], int32_t& p0, int32_t& p1) {
-  const int t = threadIdx.x;
-  auto issue = [&](int j) {
-    const int32_t* src =
-        words + static_cast<size_t>(b0 + j) * BITS * lanes + l;
-    uint32_t(*slot)[kThreads] = ring[j & (kStages - 1)];
-#pragma unroll
-    for (int i = 0; i < BITS; ++i) {
-      __pipeline_memcpy_async(&slot[i][t], src + i * lanes, 4);
-    }
-  };
-#pragma unroll
-  for (int j = 0; j < kStages - 1; ++j) {
-    if (j < n) issue(j);
-    __pipeline_commit();
-  }
-  int next_pr = n > 0 ? prof[static_cast<size_t>(b0) * lanes + l] : 0;
-  for (int j = 0; j < n; ++j) {
-    if (j + kStages - 1 < n) issue(j + kStages - 1);
-    __pipeline_commit();  // empty groups at the tail keep the count
-    const int pr = next_pr;
-    if (j + 1 < n) {
-      next_pr = prof[static_cast<size_t>(b0 + j + 1) * lanes + l];
-    }
-    __pipeline_wait_prior(kStages - 1);  // block j's words have landed
-    const int factor = pr >> 4;
-    const int range = pr & 0x0F;
-    const int32_t k0 = gain_k0(factor);
-    const int32_t k1 = gain_k1(factor);
-    const uint32_t(*slot)[kThreads] = ring[j & (kStages - 1)];
-    uint32_t bytes[4 * BITS];
-#pragma unroll
-    for (int i = 0; i < BITS; ++i) {
-      const uint32_t w = slot[i][t];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bytes[4 * i + q] = (w >> (8 * q)) & 0xFFu;
-    }
-    int16_t* out =
-        WITH_OUTPUT
-            ? pcm + static_cast<size_t>(b0 + j) * kBlockSamples * lanes + l
-            : nullptr;
-#pragma unroll
-    for (int s = 0; s < kBlockSamples; ++s) {
-      const uint32_t v = unpack_sample<BITS>(bytes, s);
-      const int32_t x = filter_step(sign16(v) >> range, k0, k1, p0, p1);
-      if constexpr (WITH_OUTPUT) out[s * lanes] = static_cast<int16_t>(x);
-    }
-  }
-}
 
 template <int BITS, bool WITH_OUTPUT>
 __global__ void __launch_bounds__(kThreads)
@@ -109,15 +53,18 @@ decode_words_kernel(const uint8_t* __restrict__ prof,
                     const int32_t* __restrict__ state,
                     int16_t* __restrict__ pcm, int32_t* __restrict__ end,
                     int32_t* scratch, int B, int L, int K, int Bc) {
-  __shared__ uint32_t ring[kStages][BITS][kThreads];
-  uint32_t(*slots)[BITS][kThreads] = ring;
+  using Load = LoadW32<BITS>;
+  __shared__ uint32_t ring[Load::kStages * Load::kWords * kThreads];
+  uint32_t* slots = ring;
   const size_t lanes = static_cast<size_t>(L);
+  const Load ld{prof, words, lanes};
+  const StoreI16 st{pcm};
   chunk_fixpoint<WITH_OUTPUT>(
       state, end, scratch, B, L, K, Bc,
       [=](auto out, long long l, long long b0, int n, int32_t& p0,
           int32_t& p1) {
-        run_chunk<BITS, decltype(out)::value>(prof, words, pcm, lanes, l, b0,
-                                              n, slots, p0, p1);
+        run_chunk<decltype(out)::value>(ld, st, slots, lanes, l, b0, n, p0,
+                                        p1);
       });
 }
 

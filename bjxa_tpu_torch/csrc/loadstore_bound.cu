@@ -19,13 +19,23 @@
 // Layout: prof uint8[B, L], words int32[B, BITS, L], state int32[L, 2],
 // out int16[B, 32, L], end int32[L, 2]; lanes are minor.
 //
-// Design: one thread per lane, blocks an in-thread loop, a lane bound check
-// in place of padding, as in decode_words.cu.  The sums wrap, so they are
-// taken as uint32_t (signed overflow is undefined in C++).
+// Design: decode_words.cu's, with the decode taken out.  The same launch
+// as the words kernel at K = 1 (one cooperative launch over a persistent
+// grid sized from its own occupancy, chunk_fixpoint.cuh's item loop: lane l
+// at item l, threads strided over the lanes) and the same chunk loads
+// (decode_chunk.cuh's ring_blocks under LoadW32: each thread's BITS words of
+// the next three blocks in flight through a cp.async ring, the next
+// profile byte in a register) and stores (StoreI16); the body between them
+// is the sum and base + n above.  The sums wrap, so they are taken as
+// uint32_t (signed overflow is undefined in C++).  It is not tuned beyond
+// that: it is the yardstick, and must not beat the words kernel only for
+// being tuned differently.
 //
 // Bound: memory bytes, by construction (4*BITS + 1 bytes read and 64 written
 // per block and lane).
 #include "adpcm.cuh"
+#include "chunk_fixpoint.cuh"
+#include "decode_chunk.cuh"
 
 namespace bjxa {
 namespace {
@@ -36,60 +46,73 @@ loadstore_bound_kernel(const uint8_t* __restrict__ prof,
                        const int32_t* __restrict__ words,
                        const int32_t* __restrict__ state,
                        int16_t* __restrict__ out, int32_t* __restrict__ end,
-                       int B, int L) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
+                       int32_t* scratch, int B, int L) {
+  using Load = LoadW32<BITS>;
+  __shared__ uint32_t ring[Load::kStages * Load::kWords * kThreads];
+  uint32_t* slots = ring;
   const size_t lanes = static_cast<size_t>(L);
-  uint32_t acc = static_cast<uint32_t>(state[2 * l]);
-  for (int b = 0; b < B; ++b) {
-    uint32_t base = prof[static_cast<size_t>(b) * lanes + l];
-    const int32_t* wb = words + static_cast<size_t>(b) * BITS * lanes + l;
+  const Load ld{prof, words, lanes};
+  const StoreI16 st{out};
+  chunk_fixpoint<true>(
+      state, end, scratch, B, L, 1, B,
+      [=](auto, long long l, long long b0, int n, int32_t& p0, int32_t&) {
+        uint32_t acc = static_cast<uint32_t>(p0);
+        ring_blocks(ld, slots, l, b0, n,
+                    [&](long long b, int pr, const typename Load::Item&,
+                        int j) {
+          uint32_t base = static_cast<uint32_t>(pr);
 #pragma unroll
-    for (int i = 0; i < BITS; ++i) {
-      base += static_cast<uint32_t>(wb[i * lanes]);
-    }
-    int16_t* o = out + static_cast<size_t>(b) * kBlockSamples * lanes + l;
+          for (int i = 0; i < BITS; ++i) base += ld.word(slots, j, i);
+          int16_t* o = st.block(lanes, l, b);
+          int32_t prev = 0;
 #pragma unroll
-    for (int n = 0; n < kBlockSamples; ++n) {
-      o[n * lanes] = static_cast<int16_t>(static_cast<uint16_t>(base + n));
-    }
-    acc += base;
-  }
-  end[2 * l] = static_cast<int32_t>(acc);
-  end[2 * l + 1] = state[2 * l + 1];
+          for (int s = 0; s < kBlockSamples; ++s) {
+            st.put(o, s, lanes, static_cast<int32_t>(base + s), prev);
+          }
+          acc += base;
+        });
+        p0 = static_cast<int32_t>(acc);
+      });
 }
 
 template <int BITS>
-void launch(const uint8_t* prof, const int32_t* words, const int32_t* state,
-            int16_t* out, int32_t* end, int B, int L, cudaStream_t s) {
-  loadstore_bound_kernel<BITS><<<grid_for(L), kThreads, 0, s>>>(
-      prof, words, state, out, end, B, L);
+const void* kernel_for() {
+  return reinterpret_cast<const void*>(&loadstore_bound_kernel<BITS>);
+}
+
+const void* pick_kernel(int bits) {
+  switch (bits) {
+    case 4: return kernel_for<4>();
+    case 6: return kernel_for<6>();
+    case 8: return kernel_for<8>();
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 }  // namespace bjxa
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
+// CTAs of the kernel that fit on one SM at once (the persistent grid is
+// this times the SM count at most), or minus a CUDA error code.
+extern "C" int bjxa_loadstore_bound_occupancy(int bits, int device) {
+  return bjxa::coop_occupancy(bjxa::pick_kernel(bits), device);
+}
+
+// One cooperative launch of `ctas` CTAs on `stream`, without
+// synchronising; scratch int32[4] (scratch[2] receives the round count, 0).
+// A refused launch returns its error.
 extern "C" int bjxa_loadstore_bound(const void* prof, const void* words,
                                     const void* state, void* out, void* end,
-                                    int B, int L, int bits, int device,
-                                    void* stream) {
-  if (B < 0 || L <= 0 || out == nullptr) {
+                                    void* scratch, int B, int L, int bits,
+                                    int ctas, int device, void* stream) {
+  if (B < 0 || L <= 0 || ctas <= 0 || scratch == nullptr ||
+      (B > 0 && out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  const auto* p = static_cast<const uint8_t*>(prof);
-  const auto* w = static_cast<const int32_t*>(words);
-  const auto* st = static_cast<const int32_t*>(state);
-  auto* o = static_cast<int16_t*>(out);
   auto* e = static_cast<int32_t*>(end);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (bits) {
-    case 4: bjxa::launch<4>(p, w, st, o, e, B, L, s); break;
-    case 6: bjxa::launch<6>(p, w, st, o, e, B, L, s); break;
-    case 8: bjxa::launch<8>(p, w, st, o, e, B, L, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto* sc = static_cast<int32_t*>(scratch);
+  void* args[] = {const_cast<void**>(&prof), const_cast<void**>(&words),
+                  const_cast<void**>(&state), &out, &e, &sc, &B, &L};
+  return bjxa::coop_launch(bjxa::pick_kernel(bits), args, ctas, device,
+                           stream);
 }

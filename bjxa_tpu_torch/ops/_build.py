@@ -61,11 +61,18 @@ SIGNATURES = {
     "bjxa_empty_launch": (_I, _P),
     # pcm, state, profiles, coded, recon, end, B, L, bits, device, stream
     "bjxa_encode_search": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # first (blocks_t | prof), words, state, out, end, B, L, load, store,
-    # device, stream
-    "bjxa_decode_variant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # prof, words, state, out, end, B, L, bits, device, stream
-    "bjxa_loadstore_bound": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # first (blocks_t | prof), words, state, out, end, scratch, B, L, K, Bc,
+    # load, store, ctas, device, stream
+    "bjxa_decode_variant": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P),
+    # load, store, device
+    "bjxa_decode_variant_occupancy": (_I, _I, _I),
+    # load, store
+    "bjxa_decode_variant_smem": (_I, _I),
+    # prof, words, state, out, end, scratch, B, L, bits, ctas, device, stream
+    "bjxa_loadstore_bound": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # bits, device
+    "bjxa_loadstore_bound_occupancy": (_I, _I),
     # x, out, n, elem_bytes, mix, device, stream
     "bjxa_alu_mix": (_P, _P, _LL, _I, _I, _I, _P),
 }

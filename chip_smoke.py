@@ -9,7 +9,9 @@ Phases, one line each (any failure raises and exits nonzero):
 0. environment: the card, its power limit, torch and CUDA versions;
 1. build the CUDA kernels from ``bjxa_tpu_torch/csrc`` (nvcc, sm_90a, one
    compiler per source, all started together), with each kernel's
-   registers and spills;
+   registers and spills, and each instantiation of the variants kernel's
+   registers, spills, shared memory and CTAs an SM (a spill in it, the
+   words kernel or the load/store bound fails the run);
 2. each kernel, every instantiation, against its plain PyTorch version on
    the card at the main paths' shapes and at ragged ones: exact equality;
    the words kernel's chunked schedule also against its chunked plain
@@ -23,6 +25,10 @@ Phases, one line each (any failure raises and exits nonzero):
    (frames, end state, validity) and its chunked one (rounds) at every
    block count of the short path's checks x bits x channels x chunk size;
    the samples entry in both regimes (one CTA, one thread per lane);
+   every instantiation of the load/store variants at forced and picked
+   chunk counts, ragged lane counts and warps that straddle two chunks,
+   against their chunked plain version (rounds included) and the words and
+   lanes kernels;
 3. known answers: the saturation vector's WAV SHA-1 (and the reference's
    golden fixtures when ``BJXA_REFERENCE_DIR`` points at them), the
    encoder's ranking-contract vectors, and an encode -> decode round trip
@@ -62,7 +68,9 @@ Phases, one line each (any failure raises and exits nonzero):
    the words kernel's share of the measured load/store bound at the
    headline shape, and the corpus engine end to
    end, split by the stages it times itself (``Counters.stage_ms``); the
-   measurement kernels against their plain versions and their bounds; and
+   measurement kernels against their plain versions and their bounds,
+   the variants beside the words kernel at the scripts' shape and on a
+   corpus batch; and
    ``python -m bjxa_tpu_torch.bench`` and the bound, variant and probe
    scripts as child processes, their JSON lines echoed.
 
@@ -229,6 +237,22 @@ SATURATION_WAV_SHA1 = "56ba3f62bf27ac9fd19cd97bcda06b4db327e612"
 # Measurement-kernel checks, (B, L): the benchmark scripts' shape first
 # (8-bit, 64 blocks x 32,768 lanes), then ragged ones.
 VARIANT_SHAPES = ((64, 32768), (7, 8191), (300, 3))
+# The variants kernel's chunked schedule, (B, L, K, offset): K forced, or
+# None for the wrapper's own (the words kernel's pick_word_chunks); the u8
+# blocks start `offset` bytes past a 16-byte boundary.  B = 23 is prime (a
+# short last chunk unless K is 1 or 23); at L = 33, 129 and 8191 with K > 1
+# warps straddle two chunks (their u8 lanes load alone), at L = 1 and 3
+# every warp does; B = 300, L = 8191 at K = 37 has more work items than the
+# persistent grid has threads; then a corpus batch, and blocks off a
+# 16-byte boundary.
+VARIANT_CHUNKED = tuple((23, L, K, 0) for L in (1, 3, 33, 129, 8191)
+                        for K in (1, 2, 7, 23)) + (
+    (0, 5, 4, 0), (300, 8191, 37, 0), (512, 32, None, 0),
+    (20736, 32, None, 0), (23, 129, 1, 3), (23, 129, 7, 8),
+    (23, 8191, 2, 15))
+# The variants' second timed shape: a corpus batch, 16 stereo 8-bit files of
+# 20,672 blocks (B padded to 20,736), the shape corpus runs launch.
+VARIANT_CORPUS = (20736, 32)
 # The segmented path: the CLI's default segment, and the file above the
 # 256 MB threshold (benchmarks/segmented.py's size: 6-bit stereo, ~105 MB of
 # XA and 268 MB of PCM).
@@ -418,27 +442,69 @@ def exact_err(a, b) -> int:
     return e
 
 
+#: ptxas' per-function lines, as (pattern, field) of ``ptxas_report``.
+PTXAS_FIELDS = ((r"Used (\d+) registers", "registers"),
+                (r"(\d+) bytes spill stores", "spill_bytes"),
+                (r"(\d+) bytes spill loads", "spill_bytes"),
+                (r"(\d+) bytes cumulative stack", "stack_bytes"),
+                (r"(\d+) bytes stack frame", "stack_bytes"),
+                (r"(\d+) bytes smem", "smem_bytes"))
+
+
 def ptxas_report(log: str) -> dict:
-    """``{kernel: {"registers": [...], "spill_bytes": n}}`` from the
-    ``-Xptxas -v`` log, over every instantiation of each kernel."""
-    out = {}
-    name = None
+    """``{kernel: {"registers": [...], "spill_bytes": n, "instances":
+    {args: {"registers", "spill_bytes", "stack_bytes", "smem_bytes"}}}}``
+    from the ``-Xptxas -v`` log: each kernel over every instantiation, and
+    each instantiation keyed by its mangled template arguments
+    (``ILi0ELi2EE`` is <0, 2>, "" for none); ``smem_bytes`` is the static
+    shared memory."""
+    out, rep = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
             name = next((k for k in KERNELS if f"{k}_kernel" in line), None)
-        if name is None:
+            rep = None
+            if name is not None:
+                m = re.search(rf"{name}_kernel(I(?:L[ib]\d+E)+E)?", line)
+                rep = out.setdefault(name, {}).setdefault(
+                    m.group(1) or "", dict.fromkeys(
+                        ("registers", "spill_bytes", "stack_bytes",
+                         "smem_bytes"), 0))
+        if rep is None:
             continue
-        rep = out.setdefault(name, {"registers": set(), "spill_bytes": 0})
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            rep["registers"].add(int(m.group(1)))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            rep["spill_bytes"] = max(rep["spill_bytes"], int(m.group(1)),
-                                     int(m.group(2)))
-    return {k: {"registers": sorted(v["registers"]),
-                "spill_bytes": v["spill_bytes"]} for k, v in out.items()}
+        for pat, field in PTXAS_FIELDS:
+            m = re.search(pat, line)
+            if m:
+                rep[field] = max(rep[field], int(m.group(1)))
+    return {k: {"registers": sorted({r["registers"] for r in v.values()}),
+                "spill_bytes": max(r["spill_bytes"] for r in v.values()),
+                "instances": v} for k, v in out.items()}
+
+
+def variants_ptxas(lib, report: dict, device: int) -> dict:
+    """Phase 1 for the variants kernel: each instantiation's ptxas report
+    (of ``ptxas_report``), its ring's dynamic shared memory and its CTAs an
+    SM, one line each; any spill of it, the words kernel or the bound fails
+    the run."""
+    from bjxa_tpu_torch.benchmarks import _variants
+
+    entries = report["decode_variants"]["instances"]
+    out = {}
+    for load, lcode in _variants.LOADS.items():
+        for store, (scode, _rows, _dtype) in _variants.STORES.items():
+            if (load, store) == ("w32", "i32"):
+                continue
+            rep = dict(entries[f"ILi{lcode}ELi{scode}EE"],
+                       dynamic_smem_bytes=lib.bjxa_decode_variant_smem(
+                           lcode, scode),
+                       ctas_per_sm=lib.bjxa_decode_variant_occupancy(
+                           lcode, scode, device))
+            out[f"{load}+{store}"] = rep
+            phase(1, "decode_variants_ptxas", variant=f"{load}+{store}",
+                  **rep)
+    for name in ("decode_words", "loadstore_bound", "decode_variants"):
+        if report[name]["spill_bytes"]:
+            raise AssertionError(f"{name} spills: {report[name]}")
+    return out
 
 
 def check_kernels(torch, dev, rng):
@@ -1590,7 +1656,10 @@ def check_measurement_kernels(torch, dev, rng) -> dict:
     ``decode_variants``, ``loadstore_bound`` and ``alu_mix`` against its
     plain version on the card, at the scripts' shape and ragged ones; the
     i16 variants also against the production kernels, the pair form against
-    i16 through its int16 view.  Returns the max |kernel - plain| each."""
+    i16 through its int16 view; the variants' chunked schedule
+    (``VARIANT_CHUNKED``) against the chunked plain version, rounds
+    included, and against the words and lanes kernels.  Returns the max
+    |kernel - plain| each."""
     from bjxa_tpu_torch.benchmarks import (_variants, load_variants,
                                            roofline_bound, store_variants)
     from bjxa_tpu_torch.ops import cuda_decode, cuda_decode_words as cdw
@@ -1627,6 +1696,52 @@ def check_measurement_kernels(torch, dev, rng) -> dict:
             ref, ref_end = (ref_w, end_w) if name[0] == "w" else (ref_l, end_l)
             e = max(e, exact_err(out, ref), exact_err(end, ref_end))
             worst["decode_variants"] = max(worst["decode_variants"], e)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, L, chunks, offset in VARIANT_CHUNKED:
+        blocks_t = rng.integers(0, 256, size=(B, 33, L), dtype=np.uint8)
+        blocks_t[:, 0, :] = (rng.integers(0, 8, size=(B, L)) << 4
+                             | rng.integers(0, 16, size=(B, L))
+                             ).astype(np.uint8)
+        flat = torch.empty(blocks_t.size + offset, dtype=torch.uint8,
+                           device=dev)
+        bt = flat[offset:].view(blocks_t.shape)
+        bt.copy_(torch.from_numpy(blocks_t))
+        st = torch.from_numpy(rng.integers(
+            -(2**15), 2**15, size=(L, 2)).astype(np.int32)).to(dev)
+        prof, words = pack_words_from_lanes(bt, bits=8)
+        K = chunks if chunks is not None else cdw.pick_word_chunks(B, L, sms)
+        K, Bc = cdw.word_chunks(B, K)
+        # the plain schedule once: every variant is a repack of it
+        ppcm, pend, prounds = cuda_decode.chunked_lanes_plain(
+            bt, st, bits=8, chunks=K)
+        ref_w, end_w, rounds_w = cdw.fused_decode_words_chunked(
+            prof, words, st, bits=8, chunks=chunks)
+        ref_l, end_l = (cuda_decode.fused_decode_lanes(bt, st, bits=8) if B
+                        else cuda_decode.fused_decode_lanes_plain(
+                            bt, st, bits=8))
+        runs = [(f"w32+{s}", load_variants.decode_w32_chunked(
+                    prof, words, st, store=s, chunks=chunks))
+                for s in load_variants.STORES]
+        runs += [(f"u8+{m}", store_variants.decode_variant_chunked(
+                     bt, st, mode=m, chunks=chunks))
+                 for m in store_variants.MODES]
+        torch.cuda.synchronize()
+        e = max(exact_err(ref_w, ppcm), exact_err(end_w, pend),
+                exact_err(ref_l, ppcm), exact_err(end_l, pend))
+        rounds = {"words": int(rounds_w.item())}
+        for name, (out, end, r) in runs:
+            store = name.split("+")[1]
+            e = max(e, exact_err(out, _variants.repack(ppcm, store)),
+                    exact_err(end, pend))
+            rounds[name] = int(r.item())
+        if set(rounds.values()) != {prounds}:
+            raise AssertionError(f"variants at B={B}, L={L}, K={K}: rounds"
+                                 f" {rounds}, the plain version {prounds}")
+        worst["decode_variants"] = max(worst["decode_variants"], e)
+        phase(2, "variants_chunked_equal_plain", shape=f"B={B},L={L},bits=8",
+              K=K, Bc=Bc, forced=chunks is not None, rounds=prounds,
+              instantiations=len(runs), items=K * L,
+              blocks_offset=bt.data_ptr() % 16)
     for B, L, bits in WORDS_SHAPES:
         prof, words, state = (torch.from_numpy(a).to(dev)
                               for a in words_case(rng, B, L, bits))
@@ -2079,8 +2194,10 @@ def measurement_main_path(torch) -> dict:
 
 def measurement_timings(torch, dev, gpu: str) -> dict:
     """Phase 5 for the measurement kernels: every instantiation against its
-    plain version and its bound at the scripts' shapes.  Returns, per
-    kernel name, what the summary needs."""
+    plain version and its bound at the scripts' shapes, the load/store
+    bound at 4, 6 and 8 bits and the words kernel on the variants' bytes,
+    the variants and the words kernel again on a corpus batch.  Returns,
+    per kernel name, what the summary needs."""
     from bjxa_tpu_torch.benchmarks import (load_variants, roofline_bound,
                                            store_variants)
     from bjxa_tpu_torch.ops.decode import pack_words_from_lanes
@@ -2111,35 +2228,68 @@ def measurement_timings(torch, dev, gpu: str) -> dict:
     out["loadstore_bound"] = {"ms": k, "plain_ms": p, "bound_ms": b_ms,
                               "bound_by": b_by, "measured_ms": measured}
 
-    # the five instantiations of the variants kernel
-    blocks_t = rng.integers(0, 256, size=(B, 33, L), dtype=np.uint8)
-    blocks_t[:, 0, :] = (rng.integers(0, 5, size=(B, L)) << 4
-                         | rng.integers(0, 16, size=(B, L))).astype(np.uint8)
-    bt = torch.from_numpy(blocks_t).to(dev)
-    st = torch.zeros((L, 2), dtype=torch.int32, device=dev)
-    prof, words = pack_words_from_lanes(bt, bits=8)
-    runs = [(f"w32+{s}", lambda s=s: load_variants.decode_w32(
-                 prof, words, st, store=s),
-             lambda s=s: load_variants.decode_w32_plain(
-                 prof, words, st, store=s)) for s in load_variants.STORES]
-    runs += [(f"u8+{m}", lambda m=m: store_variants.decode_variant(
-                  bt, st, mode=m),
-              lambda m=m: store_variants.decode_variant_plain(
-                  bt, st, mode=m)) for m in store_variants.MODES]
-    variants = {}
-    for name, kernel, plain in runs:
-        k = cuda_ms(torch, kernel, inner=20)
-        p = cuda_ms(torch, plain, reps=3)
-        written = B * 32 * L * (4 if name.endswith("i32") else 2)
-        b_ms, b_by = bound(B * L * 33 + written + 2 * L * 8,
-                           samples * DECODE_OPS_PER_SAMPLE)
-        variants[name] = {"ms": k, "plain_ms": p, "bound_ms": b_ms,
-                          "bound_by": b_by}
-        phase(5, "time_decode_variant", gpu=repr(gpu), variant=name,
-              shape=f"B={B},L={L},bits=8", kernel_ms=f"{k:.6f}",
-              plain_ms=f"{p:.6f}", bound_ms=f"{b_ms:.6f}", bound_by=b_by,
-              gsamples_per_s=f"{samples / k / 1e6:.3f}")
-    out["decode_variants"] = dict(variants["w32+i16"], instantiations=variants)
+    # the five instantiations of the variants kernel and the words kernel
+    # on the same bytes, at the scripts' shape and on a corpus batch
+    from bjxa_tpu_torch.ops import cuda_decode_words as cdw
+
+    variants, words_ms = {}, {}
+    for label, (vB, vL) in (("scripts", (B, L)), ("corpus_batch",
+                                                  VARIANT_CORPUS)):
+        blocks_t = rng.integers(0, 256, size=(vB, 33, vL), dtype=np.uint8)
+        blocks_t[:, 0, :] = (rng.integers(0, 5, size=(vB, vL)) << 4
+                             | rng.integers(0, 16, size=(vB, vL))
+                             ).astype(np.uint8)
+        bt = torch.from_numpy(blocks_t).to(dev)
+        st = torch.zeros((vL, 2), dtype=torch.int32, device=dev)
+        prof, words = pack_words_from_lanes(bt, bits=8)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        K = cdw.pick_word_chunks(vB, vL, sms)
+        _o, _e, rounds = cdw.fused_decode_words_chunked(prof, words, st,
+                                                        bits=8)
+        runs = [(f"w32+{s}", lambda s=s: load_variants.decode_w32(
+                     prof, words, st, store=s),
+                 lambda s=s: load_variants.decode_w32_plain(
+                     prof, words, st, store=s)) for s in load_variants.STORES]
+        runs += [(f"u8+{m}", lambda m=m: store_variants.decode_variant(
+                      bt, st, mode=m),
+                  lambda m=m: store_variants.decode_variant_plain(
+                      bt, st, mode=m)) for m in store_variants.MODES]
+        words_ms[label] = cuda_ms(torch, lambda: cdw.fused_decode_words(
+            prof, words, st, bits=8), inner=20)
+        vsamples = vB * 32 * vL
+        timed = {}
+        for name, kernel, plain in runs:
+            # the plain versions run B*32 steps: the scripts' shape only
+            k = cuda_ms(torch, kernel, inner=20)
+            p = cuda_ms(torch, plain, reps=3) if label == "scripts" else None
+            written = vsamples * (4 if name.endswith("i32") else 2)
+            b_ms, b_by = bound(vB * vL * 33 + written + 2 * vL * 8,
+                               vsamples * DECODE_OPS_PER_SAMPLE)
+            timed[name] = {"ms": k, "plain_ms": p, "bound_ms": b_ms,
+                           "bound_by": b_by}
+            phase(5, "time_decode_variant", gpu=repr(gpu), variant=name,
+                  shape=f"B={vB},L={vL},bits=8", K=K,
+                  rounds=int(rounds.item()), kernel_ms=f"{k:.6f}",
+                  plain_ms="not timed" if p is None else f"{p:.6f}",
+                  bound_ms=f"{b_ms:.6f}", bound_by=b_by,
+                  share_of_bound=f"{b_ms / k:.4f}",
+                  over_decode_words=f"{k / words_ms[label]:.4f}",
+                  gsamples_per_s=f"{vsamples / k / 1e6:.3f}")
+        phase(5, "time_decode_words_beside_variants", gpu=repr(gpu),
+              shape=f"B={vB},L={vL},bits=8", K=K, rounds=int(rounds.item()),
+              kernel_ms=f"{words_ms[label]:.6f}",
+              w32_i16_over_words=(
+                  f"{timed['w32+i16']['ms'] / words_ms[label]:.4f}"),
+              loadstore_bound_ms=(f"{measured[8]:.6f}" if label == "scripts"
+                                  else "not timed"))
+        for name, rec in timed.items():
+            if label == "scripts":
+                variants[name] = rec
+            else:
+                variants[name][label] = dict(rec, shape=f"B={vB},L={vL}",
+                                             K=K, rounds=int(rounds.item()))
+    out["decode_variants"] = dict(variants["w32+i16"], instantiations=variants,
+                                  decode_words_ms=words_ms)
 
     # the ALU probe: both element types, every mix
     mixes = {}
@@ -2258,6 +2408,9 @@ def main() -> int:
           spill_bytes=enc_ptx["spill_bytes"], cta_threads=ENCODE_CTA_THREADS,
           ctas_per_sm=min(65536 // (regs * ENCODE_CTA_THREADS),
                           2048 // ENCODE_CTA_THREADS))
+
+    var_ptx = variants_ptxas(_build.library(), report,
+                             torch.cuda.current_device())
 
     # ---- phase 2: kernels against their plain versions ----------------------
     rng = np.random.default_rng(SEED)
@@ -2616,7 +2769,7 @@ def main() -> int:
         entry("decode_variants", "benchmarks/bench_load_variants.py:43",
               {"load_variants": meas_launches["load_variants"],
                "store_variants": meas_launches["store_variants"]},
-              meas["decode_variants"],
+              meas["decode_variants"], ptxas=var_ptx,
               also_replaces="benchmarks/bench_store_variants.py:32"),
         entry("loadstore_bound", "benchmarks/bench_roofline_bound.py:54",
               {"roofline_bound": meas_launches["loadstore_bound"]},

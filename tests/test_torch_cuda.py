@@ -793,8 +793,141 @@ def test_store_variant_kernel_matches_plain(dev, mode, B, L):
     assert torch.equal(as_i16, ref)
 
 
+#: The five instantiations of the variants kernel, (load, store).
+VARIANTS = [("w32", "i16"), ("w32", "pair"), ("u8", "i16"), ("u8", "i32"),
+            ("u8", "pair")]
+
+
+def _variant_chunked_equals_plains(load, store, blocks_t, state, chunks):
+    """One instantiation at ``chunks`` against its chunked plain version
+    (out, end and rounds) and its sequential one, and its int16 view
+    against the production kernel of its load (the words kernel for
+    ``w32``, the lanes kernel for ``u8``), bit for bit.  Returns the
+    rounds."""
+    B = blocks_t.shape[0]
+    K, _Bc = cuda_decode_words.word_chunks(B, chunks)
+    if load == "w32":
+        prof, words = (torch.from_numpy(a).to(blocks_t.device) for a in
+                       words_from_blocks_host(blocks_t.cpu().numpy(), 8))
+        mod, args = load_variants, (prof, words, state)
+        before = mod.LAUNCHES
+        out, end, rounds = mod.decode_w32_chunked(*args, store=store,
+                                                  chunks=chunks)
+        pout, pend, prounds = mod.decode_w32_chunked_plain(
+            *args, store=store, chunks=chunks)
+        sout, send = mod.decode_w32_plain(*args, store=store)
+        ref, ref_end, ref_rounds = (
+            cuda_decode_words.fused_decode_words_chunked(*args, bits=8,
+                                                         chunks=chunks))
+    else:
+        mod, args = store_variants, (blocks_t, state)
+        before = mod.LAUNCHES
+        out, end, rounds = mod.decode_variant_chunked(*args, mode=store,
+                                                      chunks=chunks)
+        pout, pend, prounds = mod.decode_variant_chunked_plain(
+            *args, mode=store, chunks=chunks)
+        sout, send = mod.decode_variant_plain(*args, mode=store)
+        # the lanes kernel takes no empty stream: its plain version then
+        ref, ref_end = (cuda_decode.fused_decode_lanes if B else
+                        cuda_decode.fused_decode_lanes_plain)(*args, bits=8)
+        ref_rounds = None
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 1
+    assert out.dtype == pout.dtype and torch.equal(out, pout)
+    assert torch.equal(out, sout)
+    assert torch.equal(end, pend) and torch.equal(end, send)
+    assert torch.equal(end, ref_end)
+    assert int(rounds.item()) == prounds
+    assert (prounds == 0) if K == 1 else (1 <= prounds <= K)
+    if ref_rounds is not None:
+        assert int(ref_rounds.item()) == prounds
+    as_i16 = (_variants.pair_to_i16(out) if store == "pair"
+              else out.to(torch.int16))
+    assert torch.equal(as_i16, ref)
+    return prounds
+
+
+@pytest.mark.parametrize("K", [1, 2, 7, 23])
+@pytest.mark.parametrize("L", [1, 3, 33, 129, 8191])
+@pytest.mark.parametrize("load,store", VARIANTS)
+def test_variant_kernel_chunks_match_plains(dev, load, store, L, K):
+    """Forced K over B = 23 (prime: a short last chunk unless K is 1 or 23)
+    at ragged lane counts; with L = 33 or 129 and K > 1 a warp's items
+    straddle two chunks, and L = 1 or 3 leaves a u8 row's word shared with
+    the next row's bytes."""
+    blocks_t, state = _lanes(8, 23, L, seed=L * 10 + K, dev=dev)
+    _variant_chunked_equals_plains(load, store, blocks_t, state, K)
+
+
+@pytest.mark.parametrize("load,store", VARIANTS)
+def test_variant_kernel_slow_merging_stream(dev, load, store):
+    """K = B: the starts take more than two rounds to settle."""
+    prof, words, state = _words_case(8, 23, 33, 5, dev, slow=True)
+    from bjxa_tpu_torch.ops.decode import words_to_blocks
+
+    blocks_t = words_to_blocks(prof, words, bits=8).contiguous()
+    assert 2 < _variant_chunked_equals_plains(load, store, blocks_t, state,
+                                              23) <= 23
+
+
+@pytest.mark.parametrize("load,store", VARIANTS)
+@pytest.mark.parametrize("B,L,K", [
+    (0, 5, 4),  # no blocks: end = state, no round
+    (300, 8191, 37),  # more work items than the persistent grid's threads
+    (512, 32, None),  # the wrapper's own K at corpus chunking (64, Bc = 8)
+    (64, 32768, None),  # the scripts' shape: K = 1
+])
+def test_variant_kernel_shapes_match_plains(dev, load, store, B, L, K):
+    blocks_t, state = _lanes(8, B, L, seed=B + L, dev=dev)
+    if K is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        K = cuda_decode_words.pick_word_chunks(B, L, sms)
+    _variant_chunked_equals_plains(load, store, blocks_t, state, K)
+
+
+def test_variant_kernel_refused_launch_raises(dev, monkeypatch):
+    """A cooperative grid larger than the card holds at once is refused,
+    and the wrapper raises; nothing falls back."""
+    blocks_t, state = _lanes(8, 64, 4096, seed=3, dev=dev)
+    for load, store in VARIANTS:
+        fit = cuda_decode.grid_ctas(1 << 40, "bjxa_decode_variant_occupancy",
+                                    _variants.LOADS[load],
+                                    _variants.STORES[store][0], device=dev)
+        monkeypatch.setattr(_variants, "grid_ctas",
+                            lambda *a, fit=fit, **k: fit + 1)
+        before = (load_variants.LAUNCHES, store_variants.LAUNCHES)
+        with pytest.raises(RuntimeError, match="bjxa_decode_variant"):
+            if load == "w32":
+                prof, words = (torch.from_numpy(a).to(dev) for a in
+                               words_from_blocks_host(blocks_t.cpu().numpy(),
+                                                      8))
+                load_variants.decode_w32_chunked(prof, words, state,
+                                                 store=store, chunks=4)
+            else:
+                store_variants.decode_variant_chunked(blocks_t, state,
+                                                      mode=store, chunks=4)
+        assert (load_variants.LAUNCHES, store_variants.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+@pytest.mark.parametrize("store", ["i16", "i32", "pair"])
+def test_u8_variant_takes_unaligned_blocks(dev, store, offset):
+    """Blocks that start off a 16-byte boundary (a view into a larger
+    buffer) decode as the aligned copy does, at K = 1 and chunked."""
+    blocks_t, state = _lanes(8, 23, 129, seed=offset, dev=dev)
+    flat = torch.empty(blocks_t.numel() + offset, dtype=torch.uint8,
+                       device=dev)
+    shifted = flat[offset:].view(blocks_t.shape)
+    shifted.copy_(blocks_t)
+    assert shifted.data_ptr() % 16
+    for K in (1, 7):
+        _variant_chunked_equals_plains("u8", store, shifted, state, K)
+
+
 @pytest.mark.parametrize("bits", [4, 6, 8])
-@pytest.mark.parametrize("B,L", [(40, 1000), (3, 129), (300, 3)])
+@pytest.mark.parametrize("B,L", [(40, 1000), (3, 129), (300, 3), (0, 7),
+                                 (23, 1), (23, 33), (7, 8191),
+                                 (64, 32768)])
 def test_loadstore_bound_kernel_matches_plain(dev, bits, B, L):
     rng = np.random.default_rng(bits * B + L)
     prof = torch.from_numpy(
