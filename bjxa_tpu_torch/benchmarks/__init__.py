@@ -12,9 +12,11 @@ the JAX package's ``benchmarks/`` directory:
   the corpus engine and the segmented decode end to end
   (``bench_encode.py``, ``bench_corpus.py``, ``bench_segmented.py``).
 
-Card-only scripts of the port's own: ``search_unroll`` and ``stream_store``
-(kernel ablations), and ``short_stream.py``, run as a file with ``--root``
-to time the short-stream path of any checkout's package.
+Card-only scripts of the port's own: ``search_unroll``, ``stream_store``
+and ``u8_ring`` (kernel ablations), and ``short_stream.py``, run as a file
+with ``--root`` to time the kernels of any checkout's package.
+``alu_pack`` (the ALU probe's ablations) builds on the card and rehearses
+its plain twins on the CPU.
 
 The headline, ``python -m bjxa_tpu_torch.bench``, is the port of the root
 ``bench.py``.  Every script runs on the CUDA card unless

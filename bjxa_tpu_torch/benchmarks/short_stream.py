@@ -25,7 +25,10 @@ its public entry points, on seeded random inputs with valid profiles:
   L=8,192, 6-bit; eager windows;
 * ``xa_to_wav`` of a 23-block stereo 8-bit stream, host clock,
   synchronised, median of 21, and the device kernels and copies of one
-  such decode from ``torch.profiler``.
+  such decode from ``torch.profiler``;
+* the ALU probe (kernel 11, ``tools/encode_pack_falsify.alu_mix``) in its
+  six forms (int32 and int16 x ``full``, ``clip``, ``muladd``) at the
+  probe's shape, eagerly and in a CUDA graph.
 
 Beside each kernel's time it prints the SHA-1 of its outputs, so two
 checkouts' runs show whether any byte moved, and ptxas' registers of each
@@ -173,6 +176,7 @@ def main(argv=None) -> int:
     from bjxa_tpu_torch.ops import cuda_encode, cuda_filter
     from bjxa_tpu_torch.ops.decode import pack_words_from_lanes
     from bjxa_tpu_torch.ops.filter import profile_gains
+    from bjxa_tpu_torch.tools import encode_pack_falsify as probe
 
     if Path(pkg.__file__).resolve().parents[1] != root:
         raise RuntimeError(f"bjxa_tpu_torch imported from {pkg.__file__}")
@@ -185,6 +189,16 @@ def main(argv=None) -> int:
            "words_registers": words_registers(
                _build.library_path().with_suffix(".log").read_text())}
     rng = np.random.default_rng(20261017)
+
+    for dtype in (torch.int32, torch.int16):
+        x = probe.probe_input(dtype, dev)
+        for mix in probe.MIXES:
+            def alu(mix=mix, x=x):
+                return probe.alu_mix(x, mix=mix)
+            name = f"alu_{str(dtype).removeprefix('torch.')}_{mix}"
+            out[f"{name}_sha1"] = digest(alu())
+            out[f"{name}_eager_ms"] = time_ms(alu, dev, reps=reps, inner=20)
+            out[f"{name}_graph_ms"] = graph_ms(alu, reps)
 
     samples = torch.from_numpy(rng.integers(
         -(2**15), 2**15, size=(64, 32, 2)).astype(np.int16)).to(dev)

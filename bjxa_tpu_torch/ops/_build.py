@@ -73,8 +73,10 @@ SIGNATURES = {
     "bjxa_loadstore_bound": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # bits, device
     "bjxa_loadstore_bound_occupancy": (_I, _I),
-    # x, out, n, elem_bytes, mix, device, stream
-    "bjxa_alu_mix": (_P, _P, _LL, _I, _I, _I, _P),
+    # x, out, n, elem_bytes, mix, ctas, device, stream
+    "bjxa_alu_mix": (_P, _P, _LL, _I, _I, _I, _I, _P),
+    # elem_bytes, mix, device
+    "bjxa_alu_mix_occupancy": (_I, _I, _I),
 }
 
 

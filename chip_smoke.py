@@ -70,7 +70,8 @@ Phases, one line each (any failure raises and exits nonzero):
    end, split by the stages it times itself (``Counters.stage_ms``); the
    measurement kernels against their plain versions and their bounds,
    the variants beside the words kernel at the scripts' shape and on a
-   corpus batch; and
+   corpus batch, the ALU probe's six forms in CUDA graphs and eagerly with
+   its int16/int32 rate ratio from the graphs; and
    ``python -m bjxa_tpu_torch.bench`` and the bound, variant and probe
    scripts as child processes, their JSON lines echoed.
 
@@ -250,6 +251,11 @@ VARIANT_CHUNKED = tuple((23, L, K, 0) for L in (1, 3, 33, 129, 8191)
     (0, 5, 4, 0), (300, 8191, 37, 0), (512, 32, None, 0),
     (20736, 32, None, 0), (23, 129, 1, 3), (23, 129, 7, 8),
     (23, 8191, 2, 15))
+# The ALU probe's checks, (shape, offset in elements): the scripts' shape
+# (None), a ragged one, odd and tiny counts, and views that start 1-7
+# elements past a 16-byte boundary (int32 views take offsets 1-3).
+ALU_SHAPES = ((None, 0), ((7, 8191), 0), ((1,), 0), ((3,), 0),
+              ((2047,), 0)) + tuple(((4099,), k) for k in range(1, 8))
 # The variants' second timed shape: a corpus batch, 16 stereo 8-bit files of
 # 20,672 blocks (B padded to 20,736), the shape corpus runs launch.
 VARIANT_CORPUS = (20736, 32)
@@ -266,6 +272,11 @@ BIG_BLOCKS = 2 * 1024 * 1024
 # can exceed either.
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
+# The narrower per-pipe figure, reported beside the issue-rate bound as
+# information: integer instructions are 64 results a clock an SM on compute
+# capability 9.0 (the CUDA programming guide's throughput table), against
+# its 128 issue slots.
+INT_PIPE_OPS_PER_S = INT_OPS_PER_S / 2
 # Integer instructions the arithmetic needs, a multiply-add counted as one.
 # Decode, per sample: unpack 2 (shift, mask), sign extension 1, range shift
 # 1, a multiply and a multiply-add 2, the truncating divide 4, the sum 1,
@@ -1753,9 +1764,14 @@ def check_measurement_kernels(torch, dev, rng) -> dict:
                                        exact_err(end, pend))
     for dtype in (torch.int32, torch.int16):
         info = torch.iinfo(dtype)
-        for shape in (probe.SHAPE, (7, 8191)):
+        for shape, offset in ALU_SHAPES:
+            if offset * dtype.itemsize >= 16:
+                continue  # every address modulo 16 is taken by now
+            shape = shape or probe.SHAPE
+            n = int(np.prod(shape))
             x = torch.from_numpy(rng.integers(
-                info.min, info.max + 1, size=shape)).to(dtype).to(dev)
+                info.min, info.max + 1, size=n + offset)).to(dtype).to(dev)
+            x = x[offset:].view(shape)
             for mix in probe.MIXES:
                 got = probe.alu_mix(x, mix=mix)
                 want = probe.alu_mix_plain(x, mix=mix)
@@ -2291,26 +2307,44 @@ def measurement_timings(torch, dev, gpu: str) -> dict:
     out["decode_variants"] = dict(variants["w32+i16"], instantiations=variants,
                                   decode_words_ms=words_ms)
 
-    # the ALU probe: both element types, every mix
+    # the ALU probe: both element types, every mix, in a CUDA graph (the
+    # device alone, the time reported) and eagerly; the bound counts the
+    # instructions of each element type's step (probe.step_ops)
+    from bjxa_tpu_torch.benchmarks.short_stream import graph_ms
+
     mixes = {}
     n = probe.SHAPE[0] * probe.SHAPE[1]
     for dtype in (torch.int32, torch.int16):
         x = probe.probe_input(dtype, dev)
         for mix in probe.MIXES:
-            k = cuda_ms(torch, lambda: probe.alu_mix(x, mix=mix), inner=20)
+            def call(x=x, mix=mix):
+                return probe.alu_mix(x, mix=mix)
+            g = graph_ms(call)
+            k = cuda_ms(torch, call, inner=20)
             p = cuda_ms(torch, lambda: probe.alu_mix_plain(x, mix=mix),
                         reps=3)
-            b_ms, b_by = bound(2 * n * x.element_size(),
-                               n * probe.STEPS * probe.MIX_OPS[mix])
+            ops = n * probe.STEPS * probe.step_ops(x.element_size(), mix)
+            b_ms, b_by = bound(2 * n * x.element_size(), ops)
+            pipe_ms = ops / INT_PIPE_OPS_PER_S * 1e3
             name = f"{str(dtype).removeprefix('torch.')}+{mix}"
-            mixes[name] = {"ms": k, "plain_ms": p, "bound_ms": b_ms,
-                           "bound_by": b_by}
+            mixes[name] = {"ms": g, "eager_ms": k, "plain_ms": p,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "share_of_bound": b_ms / g,
+                           "pipe_bound_ms": pipe_ms}
             phase(5, "time_alu_mix", gpu=repr(gpu), variant=name,
                   shape=f"{probe.SHAPE[0]}x{probe.SHAPE[1]}x{probe.STEPS}",
-                  kernel_ms=f"{k:.6f}", plain_ms=f"{p:.6f}",
-                  bound_ms=f"{b_ms:.6f}", bound_by=b_by,
-                  gelem_steps_per_s=f"{n * probe.STEPS / k / 1e6:.1f}")
-    out["alu_mix"] = dict(mixes["int32+full"], instantiations=mixes)
+                  graph_ms=f"{g:.6f}", eager_ms=f"{k:.6f}",
+                  plain_ms=f"{p:.6f}", bound_ms=f"{b_ms:.6f}",
+                  bound_by=b_by, share_of_bound=f"{b_ms / g:.4f}",
+                  pipe_bound_ms=f"{pipe_ms:.6f}",
+                  gelem_steps_per_s=f"{n * probe.STEPS / g / 1e6:.1f}")
+    ratio = {mix: mixes[f"int32+{mix}"]["ms"] / mixes[f"int16+{mix}"]["ms"]
+             for mix in probe.MIXES}
+    for mix, r in ratio.items():
+        phase(5, "alu_int16_over_int32", gpu=repr(gpu), mix=mix,
+              int16_over_int32=f"{r:.4f}", needs="2.0")
+    out["alu_mix"] = dict(mixes["int32+full"], instantiations=mixes,
+                          int16_over_int32=ratio)
     return out
 
 

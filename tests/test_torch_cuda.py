@@ -947,20 +947,47 @@ def test_loadstore_bound_kernel_matches_plain(dev, bits, B, L):
     assert end.dtype == pend.dtype and torch.equal(end, pend)
 
 
-@pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
+#: The ALU probe's card cases, (dtype, shape, offset in elements): a ragged
+#: 2-D shape, the scripts' shape (None), odd and tiny counts, and views
+#: 1-7 int16 or 1-3 int32 elements past a 16-byte boundary.
+ALU_CASES = [
+    (dtype, shape, offset)
+    for dtype in (torch.int32, torch.int16)
+    for shape, offset in [((37, 129), 0), (None, 0), ((7, 8191), 0),
+                          ((1,), 0), ((3,), 0), ((2047,), 0)]
+    + [((4099,), k) for k in range(1, 16 // dtype.itemsize)]
+]
+
+
+@pytest.mark.parametrize("dtype,shape,offset", ALU_CASES, ids=str)
 @pytest.mark.parametrize("mix", ["full", "clip", "muladd"])
-def test_alu_mix_kernel_matches_plain(dev, dtype, mix):
+def test_alu_mix_kernel_matches_plain(dev, dtype, mix, shape, offset):
+    shape = shape or encode_pack_falsify.SHAPE
     info = torch.iinfo(dtype)
-    rng = np.random.default_rng(len(mix))
-    x = rng.integers(info.min, info.max + 1, size=(37, 129))
-    x[0, :4] = [info.max, info.min, -1, 0]
-    x = torch.from_numpy(x).to(dtype).to(dev)
+    rng = np.random.default_rng(len(mix) + offset)
+    x = rng.integers(info.min, info.max + 1, size=int(np.prod(shape)) + offset)
+    x[offset:offset + 4] = [info.max, info.min, -1, 0][:x.size - offset]
+    x = torch.from_numpy(x).to(dtype).to(dev)[offset:].view(shape)
     before = encode_pack_falsify.LAUNCHES
     got = encode_pack_falsify.alu_mix(x, mix=mix)
     assert encode_pack_falsify.LAUNCHES == before + 1
     want = encode_pack_falsify.alu_mix_plain(x, mix=mix)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and torch.equal(got, want)
+    assert got.is_contiguous() and got.shape == x.shape
+    assert (got.data_ptr() - x.data_ptr()) % 16 == 0
+
+
+def test_alu_mix_refused_launch_raises(dev, monkeypatch):
+    """A grid of no CTAs is refused by the runtime, and the wrapper raises;
+    nothing falls back."""
+    x = torch.arange(1000, dtype=torch.int16, device=dev)
+    monkeypatch.setattr(encode_pack_falsify, "persistent_ctas",
+                        lambda *a: 0)
+    before = encode_pack_falsify.LAUNCHES
+    with pytest.raises(RuntimeError, match="bjxa_alu_mix"):
+        encode_pack_falsify.alu_mix(x, mix="full")
+    assert encode_pack_falsify.LAUNCHES == before
 
 
 def test_measurement_wrappers_reject_bad_inputs(dev):
