@@ -8,9 +8,11 @@ twins, the batched corpus engine and the measurement scripts
 (:mod:`bjxa_tpu_torch.bench`, :mod:`bjxa_tpu_torch.benchmarks`,
 :mod:`bjxa_tpu_torch.tools`): header parsing and validation with the same
 typed errno-style errors, the chunk-parallel exact fixed-point decoder and
-search encoder, batch decode and encode over files x channels lanes, and a
-``bjxa``-compatible ``decode``/``encode``/``corpus`` CLI.  It imports no
-JAX.
+search encoder, batch decode and encode over files x channels lanes, the
+block-at-a-time codec objects (:mod:`bjxa_tpu_torch.codec`) on the native
+host library (:mod:`bjxa_tpu_torch.native`, with the drop-in C ABI), and a
+``bjxa``-compatible ``decode``/``encode``/``corpus``/``abi`` CLI.  It
+imports no JAX.
 """
 
 __version__ = "0.5.0"
@@ -46,6 +48,7 @@ from bjxa_tpu_torch.api import (
     encode_wav_stream,
 )
 from bjxa_tpu_torch.parallel.corpus import decode_corpus, encode_corpus
+from bjxa_tpu_torch.utils.hygiene import clear_compiled_caches
 
 __all__ = [
     "__version__",
@@ -75,4 +78,5 @@ __all__ = [
     "encode_wav_stream",
     "decode_corpus",
     "encode_corpus",
+    "clear_compiled_caches",
 ]

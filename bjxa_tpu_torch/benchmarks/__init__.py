@@ -10,7 +10,10 @@ the JAX package's ``benchmarks/`` directory:
   (``bench_ablate.py``);
 * ``... .encode`` / ``... .corpus`` / ``... .segmented`` — the search kernel,
   the corpus engine and the segmented decode end to end
-  (``bench_encode.py``, ``bench_corpus.py``, ``bench_segmented.py``).
+  (``bench_encode.py``, ``bench_corpus.py``, ``bench_segmented.py``);
+* ``... .abi`` — whole-file decode through the drop-in C ABI on one host
+  core, beside the reference binary when its sources are at hand
+  (``bench_abi.py``).
 
 Card-only scripts of the port's own: ``search_unroll``, ``stream_store``
 and ``u8_ring`` (kernel ablations), and ``short_stream.py``, run as a file

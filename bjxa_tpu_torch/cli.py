@@ -3,16 +3,21 @@
 Same surface as the reference CLI (``src/bjxa.c:36-52``) for the actions
 ported so far: ``help``, ``decode [<xa> [<wav>]]`` and ``encode [--bits
 <4|6|8>] [--truncate] [<wav> [<xa>]]``, with ``-`` or omitted filenames
-meaning stdin/stdout, and :mod:`bjxa_tpu.cli`'s ``corpus`` action for
-whole directories on one device.  Exit codes, output bytes and error
-labels are those of :mod:`bjxa_tpu.cli` (the reference's perror style,
-``<failing stage>: <strerror>``), so scripted callers keep working.  As there, ``encode``
+meaning stdin/stdout, and :mod:`bjxa_tpu.cli`'s extensions: ``corpus`` for
+whole directories on one device, ``decode --streaming`` (the incremental
+block-at-a-time codec of :mod:`bjxa_tpu_torch.codec` on the host, the same
+bytes as the whole-file path) and ``abi --install <prefix>`` (the drop-in
+libbjxa-compatible C library, :mod:`bjxa_tpu_torch.native.abi`).  Exit
+codes, output bytes and error labels are those of :mod:`bjxa_tpu.cli` (the
+reference's perror style, ``<failing stage>: <strerror>``), so scripted
+callers keep working.  As there, ``encode``
 runs the filter-profile search by default and ``--truncate`` reproduces
 the reference's truncation-only encoder byte-for-byte.
 
 The device is resolved once per action: ``BJXA_PLATFORM=cpu`` selects the
 CPU, anything else the CUDA card.  Without a card the tool exits 1 and
-says so; it never carries on on the CPU on its own.
+says so; it never carries on on the CPU on its own.  ``decode
+--streaming`` and ``abi`` run on the host alone and need no device.
 """
 
 from __future__ import annotations
@@ -43,13 +48,15 @@ Available actions:
   help
     Show this message and exit.
 
-  decode [--segment-blocks <n>] [<xa file> [<wav file>]]
+  decode [--streaming] [--segment-blocks <n>] [<xa file> [<wav file>]]
     Read an XA file and convert it into a WAV file.
     --segment-blocks streams the file through the device
     in n-block segments (bounded memory, automatic above
     256 MB; override with BJXA_SEGMENT_THRESHOLD).
     Decodes on the CUDA device; BJXA_PLATFORM=cpu
-    decodes on the CPU instead.
+    decodes on the CPU instead.  --streaming decodes
+    block by block on the host (the native library, or
+    numpy when BJXA_NO_NATIVE is set), same bytes.
 
   encode [--bits <4|6|8>] [--truncate] [--segment-blocks <n>]
          [<wav file> [<xa file>]]
@@ -62,6 +69,14 @@ Available actions:
     256 MB of PCM).
     Encodes on the CUDA device; BJXA_PLATFORM=cpu
     encodes on the CPU instead.
+
+  abi --install <prefix>
+    Build the drop-in libbjxa-compatible C library
+    (the reference's 19 versioned symbols backed by
+    this engine) and install lib/libbjxa.so.0,
+    include/bjxa.h and lib/pkgconfig/bjxa.pc under
+    <prefix>, ready for `cc app.c $(pkg-config
+    --cflags --libs bjxa)`.
 
   corpus [--batch-files <n>] [--depth <k>] [--manifest <path>]
          [--encode [--bits <4|6|8>] [--truncate]] [--trace <dir>]
@@ -80,7 +95,7 @@ Available actions:
 """
 
 #: Decode options of :mod:`bjxa_tpu.cli` that this tool does not have yet.
-NOT_PORTED = ("--streaming", "--devices")
+NOT_PORTED = ("--devices",)
 #: Encode options of :mod:`bjxa_tpu.cli` that this tool does not have yet.
 ENCODE_NOT_PORTED = ("--devices",)
 #: Corpus options of :mod:`bjxa_tpu.cli` that this tool does not have yet
@@ -159,9 +174,13 @@ def _select_device(action: str):
 
 
 def _cmd_decode(args: list[str], prog: str) -> int:
+    streaming = False
     segment_blocks = None
     while args and args[0].startswith("--"):
-        if args[0] == "--segment-blocks":
+        if args[0] == "--streaming":
+            streaming = True
+            args = args[1:]
+        elif args[0] == "--segment-blocks":
             if len(args) < 2 or not args[1].isdigit() or int(args[1]) < 1:
                 return _fail(prog, "Invalid --segment-blocks")
             segment_blocks = int(args[1])
@@ -172,17 +191,21 @@ def _cmd_decode(args: list[str], prog: str) -> int:
             break
     if len(args) > 2:
         return _fail(prog, "Too many arguments")
-    device, why = _select_device("decode")
-    if device is None:
-        sys.stderr.write(f"bjxa: {why}\n")
-        return 1
+    device = None  # the streaming codec runs on the host
+    if not streaming:
+        device, why = _select_device("decode")
+        if device is None:
+            sys.stderr.write(f"bjxa: {why}\n")
+            return 1
     return _run_on_files(
         args,
-        lambda fin, fout: _decode_stream(fin, fout, device, segment_blocks),
+        lambda fin, fout: _decode_stream(fin, fout, device, segment_blocks,
+                                         streaming),
     )
 
 
-def _decode_stream(fin, fout, device, segment_blocks=None) -> int:
+def _decode_stream(fin, fout, device, segment_blocks=None,
+                   streaming: bool = False) -> int:
     header = fin.read(XA_HEADER_SIZE)
     if header is None or len(header) < XA_HEADER_SIZE:
         sys.stderr.write("bjxa_fread_header: Input/output error\n")
@@ -192,6 +215,9 @@ def _decode_stream(fin, fout, device, segment_blocks=None) -> int:
     except BjxaError as e:
         _perror("bjxa_fread_header", e)
         return 1
+
+    if streaming:
+        return _decode_streaming(fin, fout, fmt, header)
 
     from bjxa_tpu_torch.ops.decode import (
         SEGMENT_BLOCKS,
@@ -225,6 +251,33 @@ def _decode_stream(fin, fout, device, segment_blocks=None) -> int:
         _perror("bjxa_decode", e)
         return 1
     fout.write(dump_pcm(pcm))
+    return 0
+
+
+def _decode_streaming(fin, fout, fmt, header: bytes) -> int:
+    """The reference's block loop (``src/bjxa_decode.c:102-161``) on the
+    incremental :class:`~bjxa_tpu_torch.codec.Decoder`: the RIFF header,
+    then one ``decode`` per effective block read."""
+    from bjxa_tpu_torch.codec import Decoder
+
+    fout.write(
+        dump_riff_header(fmt.data_len_pcm, fmt.samples_rate, fmt.channels)
+    )
+    dec = Decoder()
+    dec.parse_header(header)
+    left = fmt.blocks
+    while left > 0:
+        raw = fin.read(fmt.block_size_xa)
+        if raw is None or len(raw) < fmt.block_size_xa:
+            sys.stderr.write("fread: End of file\n")
+            return 1
+        try:
+            pcm = dec.decode(raw)
+        except BjxaError as e:
+            _perror("bjxa_decode", e)
+            return 1
+        fout.write(dump_pcm(pcm))
+        left -= 1
     return 0
 
 
@@ -552,6 +605,26 @@ def _cmd_corpus(args: list[str], prog: str) -> int:
     return 1 if res.failed else 0
 
 
+def _cmd_abi(args: list[str], prog: str) -> int:
+    """Install the drop-in C ABI (library + header + pkg-config + CLI)."""
+    if len(args) != 2 or args[0] != "--install":
+        return _fail(prog, "abi requires --install <prefix>")
+    from bjxa_tpu_torch.native import abi
+
+    try:
+        paths = abi.install(args[1])
+    except RuntimeError as exc:
+        sys.stderr.write(f"abi: {exc}\n")
+        return 1
+    except OSError as exc:
+        _perror("abi", exc)
+        return 1
+    for role in ("lib", "header", "pkgconfig", "bin"):
+        if role in paths:
+            sys.stdout.write(f"{role} {paths[role]}\n")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv if argv is None else argv)
     prog = argv[0] if argv else "bjxa"
@@ -569,6 +642,8 @@ def main(argv: list[str] | None = None) -> int:
         return _cmd_encode(rest, prog)
     if action == "corpus":
         return _cmd_corpus(rest, prog)
+    if action == "abi":
+        return _cmd_abi(rest, prog)
     return _fail(prog, "Unknown action")
 
 

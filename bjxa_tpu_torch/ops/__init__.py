@@ -5,6 +5,8 @@ decode and encode of many streams."""
 from bjxa_tpu_torch.ops.tables import BLOCK_SAMPLES, GAIN_K0, GAIN_K1
 from bjxa_tpu_torch.ops.decode import (
     decode_arrays,
+    decode_arrays_fixpoint,
+    decode_batch,
     decode_bytes,
     blocks_from_bytes,
     decode_batch_lanes,
@@ -22,6 +24,8 @@ __all__ = [
     "GAIN_K0",
     "GAIN_K1",
     "decode_arrays",
+    "decode_arrays_fixpoint",
+    "decode_batch",
     "decode_bytes",
     "blocks_from_bytes",
     "decode_batch_lanes",

@@ -31,7 +31,10 @@ with no host staging, no padding and no host sync.
 
 The batch decoders (:func:`decode_batch_lanes`, :func:`decode_batch_words`,
 :func:`decode_batch_packed`) run many independent streams at once, one lane
-per file channel: the corpus engine's path.  The packed-words layout
+per file channel: the corpus engine's path.  :func:`decode_arrays_fixpoint`
+(with :func:`fixpoint_core` and :func:`fixpoint_core_fused`) and
+:func:`decode_batch` are the JAX package's channel-major conveniences over
+the same cores, which no CLI path reaches.  The packed-words layout
 (:func:`words_from_blocks_host`) feeds the words kernel
 (:mod:`bjxa_tpu_torch.ops.cuda_decode_words`).  Every function that touches
 a device takes it explicitly, or works on the device of its tensors;
@@ -190,6 +193,122 @@ def decode_fixpoint_lanes(
     )
 
 
+def fixpoint_core(
+    profiles: torch.Tensor,
+    samples: torch.Tensor,
+    state: torch.Tensor,
+    num_chunks: int,
+):
+    """Chunk-parallel fixed-point decode over unpacked samples.
+
+    Channel-major twin of :func:`bjxa_tpu.ops.decode.fixpoint_core`: every
+    round runs :func:`~bjxa_tpu_torch.ops.filter.decode_lanes` over the
+    ``K*C`` chunk lanes (the filter kernel on a CUDA device, its plain
+    version on the CPU).
+
+    Args:
+      profiles: ``int32[C, B]``; samples: unpacked ``[C, B, 32]``;
+      state: ``int32[C, 2]``, the true entry state of block 0.
+
+    Returns ``(pcm int16[B*32, C], end_state int32[C, 2], valid bool[B, C],
+    iterations int)``.
+    """
+    C, B = profiles.shape
+    K = num_chunks
+    Bc = -(-B // K)  # blocks per chunk, ceil
+    pad = K * Bc - B
+
+    # Pad the tail with valid dummy blocks (profile 0, samples 0).
+    profiles = torch.nn.functional.pad(profiles, (0, pad))
+    samples = torch.nn.functional.pad(samples, (0, 0, 0, pad))
+
+    # Lane layout: lane l = k * C + c  (chunk-major, channel-minor).
+    prof_l = profiles.reshape(C, K, Bc).permute(2, 1, 0).reshape(Bc, K * C)
+    samp_l = (
+        samples.reshape(C, K, Bc, BLOCK_SAMPLES)
+        .permute(2, 3, 1, 0)
+        .reshape(Bc, BLOCK_SAMPLES, K * C)
+    )
+    anchor = state.to(torch.int32)
+
+    def run(states_flat, with_output):
+        pcm, end, _valid = decode_lanes(
+            prof_l, samp_l, states_flat, with_output=with_output
+        )
+        return pcm, end
+
+    states, iters = fixpoint_states(run, anchor, K, C, max_iters=K)
+    pcm_l, _end_l, valid_l = decode_lanes(
+        prof_l, samp_l, states.reshape(K * C, 2)
+    )
+    frames = _unscramble_chunks(pcm_l, B, K, C)
+    valid = (
+        valid_l.reshape(Bc, K, C).permute(1, 0, 2).reshape(K * Bc, C)[:B]
+    )
+    return frames, _end_from_frames(frames, B), valid, iters
+
+
+def fixpoint_core_fused(
+    blocks: torch.Tensor,
+    state: torch.Tensor,
+    num_chunks: int,
+    *,
+    bits: int,
+):
+    """Twin of :func:`fixpoint_core` on raw bytes, through
+    :func:`fixpoint_lanes_core` (the lanes kernel on a CUDA device).
+
+    Args:
+      blocks: ``uint8[C, B, block_size]`` raw channel blocks.
+      state:  ``int32[C, 2]``.
+
+    Same returns.  The ``uint8`` transpose to chunk lanes runs on the
+    tensors' device; hosts that can stage lane-major call
+    :func:`decode_fixpoint_lanes` instead.
+    """
+    C, B, S = blocks.shape
+    K = num_chunks
+    Bc = -(-B // K)
+    pad = K * Bc - B
+    # all-zero dummy blocks are valid (profile 0) and get trimmed
+    blocks = torch.nn.functional.pad(blocks, (0, 0, 0, pad))
+    # [C, K, Bc, S] -> [Bc, S, K, C] -> [Bc, S, K*C]
+    blocks_t = (
+        blocks.reshape(C, K, Bc, S).permute(2, 3, 1, 0)
+        .reshape(Bc, S, K * C).contiguous()
+    )
+    return fixpoint_lanes_core(blocks_t, state, K, C, B, bits=bits)
+
+
+def decode_arrays_fixpoint(
+    blocks: torch.Tensor,
+    state: torch.Tensor,
+    *,
+    bits: int,
+    num_chunks: int,
+):
+    """Exact chunk-parallel decode of one file via fixed-point iteration.
+
+    Channel-major convenience, as :func:`bjxa_tpu.ops.decode.
+    decode_arrays_fixpoint`: on a CUDA device :func:`fixpoint_core_fused`
+    (the lanes kernel, ``rounds + 1`` launches), on the CPU
+    :func:`~bjxa_tpu_torch.ops.inflate.inflate_blocks` then
+    :func:`fixpoint_core`, the split the JAX package makes between its
+    fused kernel and its plain pipeline.
+
+    Args:
+      blocks: ``uint8[C, B, block_size]``; B need not divide num_chunks.
+      state:  ``int32[C, 2]``.
+
+    Returns ``(pcm int16[B*32, C], end_state int32[C, 2], valid bool[B, C],
+    iterations int)``.
+    """
+    if blocks.device.type != "cpu":
+        return fixpoint_core_fused(blocks, state, num_chunks, bits=bits)
+    profiles, samples = inflate_blocks(blocks, bits)  # [C,B], [C,B,32]
+    return fixpoint_core(profiles, samples, state, num_chunks)
+
+
 # --------------------------------------------------------------------------
 # batches of streams (lanes = files x channels): the corpus engine's path
 # --------------------------------------------------------------------------
@@ -214,6 +333,37 @@ def decode_batch_lanes(blocks_t: torch.Tensor, state: torch.Tensor, *,
     valid = (blocks_t[:, 0, :] >> 4) < 5
     pcm, end = fused_decode_lanes(blocks_t, state, bits=bits)
     return pcm, end, valid
+
+
+def decode_batch(blocks: torch.Tensor, state: torch.Tensor, *, bits: int):
+    """Decode a batch of equal-shape files; lanes = files x channels.
+
+    Channel-major convenience, as :func:`bjxa_tpu.ops.decode.decode_batch`
+    (hosts that can stage lane-major call :func:`decode_batch_lanes`): one
+    run of :func:`~bjxa_tpu_torch.ops.filter.decode_lanes`, the filter
+    kernel on a CUDA device.
+
+    Args:
+      blocks: ``uint8[N, C, B, block_size]``.
+      state:  ``int32[N, C, 2]``.
+
+    Returns ``(pcm int16[N, B*32, C], end_state int32[N, C, 2],
+    valid bool[B, N, C])``.
+    """
+    N, C, B, S = blocks.shape
+    profiles, samples = inflate_blocks(blocks, bits)
+    prof_l = profiles.permute(2, 0, 1).reshape(B, N * C)
+    samp_l = samples.permute(2, 3, 0, 1).reshape(B, BLOCK_SAMPLES, N * C)
+    pcm, end_state, valid_l = decode_lanes(
+        prof_l, samp_l, state.reshape(N * C, 2)
+    )
+    valid = valid_l.reshape(B, N, C)
+    frames = (
+        pcm.reshape(B, BLOCK_SAMPLES, N, C)
+        .permute(2, 0, 1, 3)
+        .reshape(N, B * BLOCK_SAMPLES, C)
+    )
+    return frames, end_state.reshape(N, C, 2), valid
 
 
 def _sign_extend_32(w: torch.Tensor) -> torch.Tensor:

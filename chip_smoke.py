@@ -11,7 +11,9 @@ Phases, one line each (any failure raises and exits nonzero):
    compiler per source, all started together), with each kernel's
    registers and spills, and each instantiation of the variants kernel's
    registers, spills, shared memory and CTAs an SM (a spill in it, the
-   words kernel or the load/store bound fails the run);
+   words kernel or the load/store bound fails the run); then the native
+   host library, the C ABI library and the C CLI of
+   ``bjxa_tpu_torch/native`` with the host compiler, commands printed;
 2. each kernel, every instantiation, against its plain PyTorch version on
    the card at the main paths' shapes and at ragged ones: exact equality;
    the words kernel's chunked schedule also against its chunked plain
@@ -28,7 +30,11 @@ Phases, one line each (any failure raises and exits nonzero):
    every instantiation of the load/store variants at forced and picked
    chunk counts, ragged lane counts and warps that straddle two chunks,
    against their chunked plain version (rounds included) and the words and
-   lanes kernels;
+   lanes kernels; the channel-major wrappers on the card against the CPU:
+   ``decode_arrays_fixpoint`` (the lanes kernel, rounds + 1 launches) at a
+   prime block count for bits 4/6/8 x 1/2 channels and at the 5-minute
+   stream's shape, ``decode_batch`` (one filter-kernel launch) on a
+   32-file corpus batch;
 3. known answers: the saturation vector's WAV SHA-1 (and the reference's
    golden fixtures when ``BJXA_REFERENCE_DIR`` points at them), the
    encoder's ranking-contract vectors, and an encode -> decode round trip
@@ -40,7 +46,9 @@ Phases, one line each (any failure raises and exits nonzero):
    byte-compared with the port's plain path on the CPU (or, where the CPU
    would take too long, the card's per-file path, which the CPU checks on a
    few files, and for the 5-minute encode the card's own bytes, whose first
-   100 s the CPU checks); the launch counters show the in-process decode, encode and
+   100 s the CPU checks, and all of which the native host search of the
+   streaming encoder checks); the launch counters show the in-process
+   decode, encode and
    corpus runs went through every kernel of their path (a long whole-file
    decode is ONE stream-kernel launch, a short one ONE launch of the fused
    short-stream kernel, a segmented one a launch a segment,
@@ -53,6 +61,13 @@ Phases, one line each (any failure raises and exits nonzero):
    256 MB threshold at a smaller peak RSS than the whole-file path, and
    fails like the CPU on an invalid profile and a truncated body; the
    measurement scripts run in-process with their launches counted;
+   ``decode --streaming`` of the 5-minute file gives the whole-file WAV,
+   and a cut file and an invalid profile fail as the whole-file CPU run
+   does; the streaming ``Encoder`` in a child process without the native
+   library searches on the card (one kernel-7 launch a call, ~101 calls)
+   and gives the native library's bytes and ``encode``'s; ``abi --install``
+   and a C client built against it through pkg-config decode the
+   saturation vector, and the installed C CLI the 5-minute file;
 5. timings on the card (CUDA events, median of repeats after warm-up), the
    per-stage split of each main path, the short-stream path (the launch
    floor of an empty kernel, the samples entry and the fused kernel in
@@ -73,7 +88,10 @@ Phases, one line each (any failure raises and exits nonzero):
    corpus batch, the ALU probe's six forms in CUDA graphs and eagerly with
    its int16/int32 rate ratio from the graphs; and
    ``python -m bjxa_tpu_torch.bench`` and the bound, variant and probe
-   scripts as child processes, their JSON lines echoed.
+   scripts as child processes, their JSON lines echoed; ``decode
+   --streaming`` of the 5-minute file, the streaming Encoder's search a
+   block on the card (kernel 7 at two lanes) against the native host
+   search, and ``benchmarks/abi.py``.
 
 The line before the last is the kernel summary as JSON (each kernel's time
 beside its plain version's and the least time the card could take for the
@@ -91,6 +109,7 @@ import json
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import struct
 import subprocess
@@ -152,7 +171,8 @@ ENCODE_STREAMS = {
 }
 # Blocks of a WAV's head that the CPU encodes as the reference where the
 # stream is longer (100 s of stereo: the plain search takes minutes on the
-# 5-minute stream).
+# 5-minute stream; the native host search of the streaming encoder checks
+# the whole stream besides, in phase 4).
 CPU_ENCODE_BLOCKS = 137813
 # The mid-size stream: sequential search against the fixed point on the card.
 MID_STREAM = (6, 2, 44100 * 20)
@@ -264,6 +284,24 @@ VARIANT_CORPUS = (20736, 32)
 # XA and 268 MB of PCM).
 SEGMENT_BLOCKS = 65536
 BIG_BLOCKS = 2 * 1024 * 1024
+
+# The streaming codec, the native host library, the C ABI and the
+# channel-major wrappers.  decode_arrays_fixpoint is checked at a prime
+# block count (K as pick_chunks gives it) for every bits x channels, then at
+# the 5-minute stream's shape; decode_batch over a corpus batch (files,
+# channels, bits, blocks) with the CPU's plain version decoding its first
+# BATCH_CPU_BLOCKS blocks (the whole batch against the numpy oracle).
+WRAPPER_BLOCKS = 1009
+BATCH = (32, 2, 8, 20672)
+BATCH_CPU_BLOCKS = 1024
+# The streaming encoder is fed the 5-minute WAV in pieces of this many
+# blocks (~101 calls, the carried state crossing each); runs of
+# ``decode --streaming`` over the 5-minute file.
+CODEC_PIECE_BLOCKS = 4096
+STREAMING_RUNS = 3
+# A mono 8-bit file of 1,200 blocks cut mid-block, after 1,000, for the
+# streaming CLI's EOF case: (bits, channels, samples, kept bytes).
+STREAM_CUT = (8, 1, 32 * 1200, 32 + 1000 * 33 + 17)
 
 # The card's peaks for the bounds.  Memory: the H100 SXM's published 3.35
 # TB/s.  Integer operations: half of its published 67 TFLOP/s float32 rate,
@@ -2395,6 +2433,401 @@ def bench_children(gpu: str) -> None:
               seconds=f"{time.perf_counter() - t0:.3f}")
 
 
+def build_native() -> None:
+    """Phase 1 for the host code: the native host library, the C ABI
+    library and the C CLI from ``bjxa_tpu_torch/native``, with the commands
+    that built them; a compiler error raises."""
+    from bjxa_tpu_torch import native
+    from bjxa_tpu_torch.native import abi
+
+    fresh = not native._SO.exists()
+    t0 = time.perf_counter()
+    native.build()
+    abi.build()
+    cli = abi.cli_path()
+    if native.lib() is None or abi.lib() is None or cli is None:
+        raise AssertionError("the native libraries are off (BJXA_NO_NATIVE)")
+    phase(1, "build_native", seconds=f"{time.perf_counter() - t0:.3f}",
+          fresh=fresh, host=repr(" ".join(native.compile_command())),
+          abi=repr(" ".join(abi.compile_command())),
+          cli=repr(" ".join(abi.cli_command())))
+
+
+def check_wrappers(torch, dev, rng) -> dict:
+    """Phase 2 for the channel-major wrappers: ``decode_arrays_fixpoint``
+    on the card (the lanes kernel, rounds + 1 launches) against its plain
+    version on the CPU at a prime block count for every bits x channels and
+    at the 5-minute stream's shape; ``decode_batch`` (one launch of the
+    filter kernel) on a corpus batch, against the CPU's plain version over
+    its head and the numpy oracle over all of it.  Returns the launches and
+    what the summary needs."""
+    from bjxa_tpu_torch.ops import cuda_decode, cuda_filter, numpy_ref
+    from bjxa_tpu_torch.ops import decode as tdecode
+
+    def blocks_of(bits, channels, B):
+        raw = rng.integers(0, 256, size=(channels, B, 4 * bits + 1),
+                           dtype=np.uint8)
+        raw[..., 0] = (rng.integers(0, 5, size=(channels, B)) << 4
+                       | rng.integers(0, 13, size=(channels, B)))
+        state = rng.integers(-(2**15), 2**15, size=(channels, 2))
+        return torch.from_numpy(raw), torch.from_numpy(state.astype(np.int32))
+
+    t_all = time.perf_counter()
+    cases = [(bits, channels, WRAPPER_BLOCKS) for bits in (4, 6, 8)
+             for channels in (1, 2)] + [
+                 (6, 2, -(-STREAMS["stereo6_5min"][2] // 32))]
+    out = {}
+    for bits, channels, B in cases:
+        b, s = blocks_of(bits, channels, B)
+        K = tdecode.pick_chunks(tdecode.pad_bucket(B), channels)
+        cuda_decode.LAUNCHES = 0
+        card = tdecode.decode_arrays_fixpoint(b.to(dev), s.to(dev), bits=bits,
+                                              num_chunks=K)
+        torch.cuda.synchronize()
+        launches = cuda_decode.LAUNCHES
+        t0 = time.perf_counter()
+        plain = tdecode.decode_arrays_fixpoint(b, s, bits=bits, num_chunks=K)
+        cpu_s = time.perf_counter() - t0
+        for c, p in zip(card[:3], plain[:3]):
+            exact_err(c.cpu(), p)
+        if card[3] != plain[3] or launches != card[3] + 1:
+            raise AssertionError(
+                f"decode_arrays_fixpoint B={B}: {card[3]} rounds on the card,"
+                f" {plain[3]} on the CPU, {launches} lanes-kernel launches")
+        out[(bits, channels, B)] = launches
+        phase(2, "decode_arrays_fixpoint_equal_plain", bits=bits,
+              channels=channels, blocks=B, K=K, rounds=card[3],
+              decode_lanes=launches, cpu_plain_s=f"{cpu_s:.3f}")
+
+    files, channels, bits, B = BATCH
+    raw = rng.integers(0, 256, size=(files, channels, B, 4 * bits + 1),
+                       dtype=np.uint8)
+    raw[..., 0] = (rng.integers(0, 5, size=(files, channels, B)) << 4
+                   | rng.integers(0, 13, size=(files, channels, B)))
+    state = rng.integers(-(2**15), 2**15,
+                         size=(files, channels, 2)).astype(np.int32)
+    b, s = torch.from_numpy(raw), torch.from_numpy(state)
+    cuda_filter.LAUNCHES = 0
+    frames, end, valid = tdecode.decode_batch(b.to(dev), s.to(dev),
+                                              bits=bits)
+    torch.cuda.synchronize()
+    batch_launches = cuda_filter.LAUNCHES
+    if batch_launches != 1:
+        raise AssertionError(f"decode_batch launched the filter kernel"
+                             f" {batch_launches} times")
+    frames, end, valid = frames.cpu(), end.cpu(), valid.cpu()
+    for f in range(files):
+        st = state[f].copy()
+        want = numpy_ref.decode_lanes_fixpoint(raw[f].transpose(1, 0, 2),
+                                               bits, st)
+        if not (np.array_equal(frames[f].numpy(), want)
+                and np.array_equal(end[f].numpy(), st)):
+            raise AssertionError(f"decode_batch file {f} != numpy oracle")
+    if not bool(valid.all()):
+        raise AssertionError("decode_batch: a valid profile marked invalid")
+    head = BATCH_CPU_BLOCKS
+    cuda_filter.LAUNCHES = 0
+    card = tdecode.decode_batch(b[:, :, :head].to(dev), s.to(dev), bits=bits)
+    plain = tdecode.decode_batch(b[:, :, :head], s, bits=bits)
+    for c, p in zip(card, plain):
+        exact_err(c.cpu(), p)
+    exact_err(card[0].cpu(), frames[:, : head * 32])
+    phase(2, "decode_batch_equal_plain", files=files, channels=channels,
+          bits=bits, blocks=B, cpu_plain_blocks=head,
+          filter_lanes=batch_launches, numpy_oracle="match",
+          seconds=f"{time.perf_counter() - t_all:.3f}")
+    return {"decode_arrays_fixpoint": out[cases[-1]],
+            "decode_batch": batch_launches}
+
+
+def codec_encode_child(wav_path: str, xa_path: str, piece_blocks: str) -> None:
+    """Run in a child process under ``BJXA_NO_NATIVE=1``: the streaming
+    :class:`~bjxa_tpu_torch.codec.Encoder` search-encodes a WAV file on the
+    card, fed ``piece_blocks`` blocks a call; prints its launches of the
+    search kernel, the calls and each call's ms as JSON."""
+    from bjxa_tpu_torch import codec, native, parse_riff_header
+    from bjxa_tpu_torch.ops import cuda_encode
+
+    if native.available():
+        raise AssertionError("the child must run without the native library")
+    wav = pathlib.Path(wav_path).read_bytes()
+    rf = parse_riff_header(wav)
+    cuda_encode.LAUNCHES = 0
+    xa, call_ms = codec_encode(codec.Encoder(), rf, wav, int(piece_blocks))
+    launches = cuda_encode.LAUNCHES
+    pathlib.Path(xa_path).write_bytes(xa)
+    print(json.dumps({"launches": launches, "calls": len(call_ms),
+                      "call_ms": call_ms}), flush=True)
+
+
+def codec_encode(enc, rf, wav: bytes, piece_blocks: int) -> tuple:
+    """``enc`` search-encodes the WAVE image ``wav`` (format ``rf``) fed
+    ``piece_blocks`` blocks a call; returns the XA image and each call's
+    host-clock ms (a call ends with its bytes on the host)."""
+    enc.init(rf, 6)
+    out, call_ms = [enc.dump_header()], []
+    body = memoryview(wav)[44:44 + rf.data_len_pcm]
+    step = piece_blocks * 32 * 2 * rf.channels
+    for pos in range(0, len(body), step):
+        t0 = time.perf_counter()
+        out.append(enc.encode(body[pos:pos + step], search=True))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    return b"".join(out), call_ms
+
+
+def streaming_main_path(images: dict, ref: dict, bad: bytes,
+                        bad_wav: bytes, enc: dict) -> dict:
+    """Phase 4 for the streaming codec and the C ABI: ``decode
+    --streaming`` of the 5-minute file (its WAV equal to the whole-file
+    decode's), a cut file and an invalid profile mid-stream (exit code,
+    stderr and bytes equal to the whole-file path's CPU run); the streaming
+    Encoder in a child process without the native library, on the card
+    (one search launch a call), equal to the same Encoder with the native
+    library and to ``encode`` of the whole file; ``abi --install``, a C
+    client built against it on the saturation vector, and the installed C
+    CLI.  ``bad_wav`` is the whole-file CPU run's output of ``bad``.
+    Returns the counts and times phase 5 needs."""
+    with tempfile.TemporaryDirectory(prefix="bjxa_smoke_codec_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "stereo6_5min.xa").write_bytes(images["stereo6_5min"])
+        (tmp / "bad.xa").write_bytes(bad)
+        (tmp / "bad_w.wav").write_bytes(bad_wav)
+        return _streaming_main_path(tmp, images, ref, enc)
+
+
+def _streaming_main_path(tmp: pathlib.Path, images: dict, ref: dict,
+                         enc: dict) -> dict:
+    from bjxa_tpu_torch import codec, native, parse_riff_header
+    from bjxa_tpu_torch.format.hexdsl import hex_to_bytes
+
+    # decode --streaming: the 5-minute file, timed over its runs
+    runs = []
+    for _ in range(STREAMING_RUNS):
+        t0 = time.perf_counter()
+        res = run_cli("decode", "--streaming", tmp / "stereo6_5min.xa",
+                      tmp / "streamed.wav", platform=None)
+        runs.append(time.perf_counter() - t0)
+        if res.returncode != 0 or res.stderr:
+            raise AssertionError(f"decode --streaming: exit {res.returncode}"
+                                 f" {res.stderr.decode()[-2000:]}")
+        if (tmp / "streamed.wav").read_bytes() != ref["stereo6_5min"]:
+            raise AssertionError("decode --streaming WAV != whole-file WAV")
+    phase(4, "cli_streaming_equals_whole_file", stream="stereo6_5min",
+          runs=len(runs), wav_bytes=len(ref["stereo6_5min"]),
+          seconds=f"{sum(runs):.3f}")
+
+    bits, channels, samples, kept = STREAM_CUT
+    (tmp / "cut.xa").write_bytes(synth_xa(np.random.default_rng(SEED + 29),
+                                          bits, channels, samples)[:kept])
+    # the whole-file CPU run of the bad file was made (and its exit code
+    # and stderr checked) by phase 4's cli_invalid_profile
+    for name, want_err in (("cut", b"fread: End of file\n"),
+                           ("bad", b"bjxa_decode: Protocol error\n")):
+        t0 = time.perf_counter()
+        got = run_cli("decode", "--streaming", tmp / f"{name}.xa",
+                      tmp / f"{name}_s.wav", platform=None)
+        whole = run_cli("decode", tmp / f"{name}.xa", tmp / f"{name}_w.wav",
+                        platform="cpu") if name == "cut" else got
+        if (got.returncode, got.stderr) != (1, want_err) or (
+            whole.returncode, whole.stderr) != (1, want_err):
+            raise AssertionError(
+                f"{name}: streaming exit {got.returncode} {got.stderr!r},"
+                f" whole-file exit {whole.returncode} {whole.stderr!r}")
+        if ((tmp / f"{name}_s.wav").read_bytes()
+                != (tmp / f"{name}_w.wav").read_bytes()):
+            raise AssertionError(f"{name}: streaming bytes != whole-file")
+        phase(4, "cli_streaming_error_equals_whole_file", file=name, exit=1,
+              stderr=repr(want_err.decode().strip()),
+              wav_bytes=(tmp / f"{name}_s.wav").stat().st_size,
+              seconds=f"{time.perf_counter() - t0:.3f}")
+
+    # the streaming Encoder: native in this process, the card in a child
+    t0 = time.perf_counter()
+    wav = enc["big"]
+    (tmp / "big.wav").write_bytes(wav)
+    rf = parse_riff_header(wav)
+    if not native.available():
+        raise AssertionError("the native library is off")
+    native_xa, native_ms = codec_encode(codec.Encoder(), rf, wav,
+                                        CODEC_PIECE_BLOCKS)
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke;"
+         " chip_smoke.codec_encode_child(*sys.argv[1:])",
+         str(tmp / "big.wav"), str(tmp / "codec.xa"),
+         str(CODEC_PIECE_BLOCKS)],
+        cwd=ROOT, env=child_env(None, BJXA_NO_NATIVE=1), capture_output=True,
+        text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"codec child: exit {res.returncode}"
+                             f" {res.stderr[-2000:]}")
+    child = json.loads(res.stdout.splitlines()[-1])
+    card_xa = (tmp / "codec.xa").read_bytes()
+    if child["launches"] != child["calls"] or child["calls"] != len(
+            native_ms):
+        raise AssertionError(f"codec child: {child['launches']} launches over"
+                             f" {child['calls']} calls")
+    if card_xa != native_xa or card_xa != enc["ref"]:
+        raise AssertionError(f"streaming Encoder XA: card == native"
+                             f" {card_xa == native_xa}, native == encode"
+                             f" {native_xa == enc['ref']}")
+    phase(4, "codec_encoder_card_equals_native_and_encode",
+          stream="stereo6_5min", piece_blocks=CODEC_PIECE_BLOCKS,
+          calls=child["calls"], encode_search=child["launches"],
+          xa_bytes=len(card_xa), sha1=sha1(card_xa)[:12],
+          seconds=f"{time.perf_counter() - t0:.3f}")
+
+    # abi --install, a C client through pkg-config, the installed C CLI
+    t0 = time.perf_counter()
+    prefix = tmp / "prefix"
+    res = run_cli("abi", "--install", prefix, platform=None)
+    roles = [line.split()[0] for line in res.stdout.decode().splitlines()]
+    if res.returncode != 0 or res.stderr or roles != [
+            "lib", "header", "pkgconfig", "bin"]:
+        raise AssertionError(f"abi --install: exit {res.returncode}"
+                             f" {res.stdout!r} {res.stderr.decode()[-2000:]}")
+    client = tmp / "client.c"
+    client.write_text(C_CLIENT)
+    pc_env = dict(os.environ, PKG_CONFIG_PATH=str(prefix / "lib/pkgconfig"))
+    pkg = subprocess.run(["pkg-config", "--cflags", "--libs", "bjxa"],
+                         env=pc_env, capture_output=True, text=True) \
+        if shutil.which("pkg-config") else None
+    flags = (pkg.stdout.split() if pkg is not None and pkg.returncode == 0
+             else [f"-I{prefix}/include", f"-L{prefix}/lib", "-lbjxa"])
+    cc = subprocess.run([os.environ.get("CC", "cc"), "-O2", str(client),
+                         *flags, "-o", str(tmp / "client")],
+                        capture_output=True, text=True)
+    if cc.returncode != 0:
+        raise AssertionError(f"C client: {cc.stderr[-2000:]}")
+    run_env = dict(os.environ, LD_LIBRARY_PATH=str(prefix / "lib"))
+    sat = hex_to_bytes(SATURATION_XA)
+    got = subprocess.run([str(tmp / "client")], input=sat, env=run_env,
+                         capture_output=True, timeout=60)
+    if got.returncode != 0 or sha1(got.stdout) != SATURATION_WAV_SHA1:
+        raise AssertionError(f"C client: exit {got.returncode}"
+                             f" {got.stderr[-2000:]!r}")
+    cli = [str(prefix / "bin" / "bjxa"), "decode"]
+    sat_cli = subprocess.run(cli, input=sat, capture_output=True, timeout=60)
+    big_cli = subprocess.run([*cli, str(tmp / "stereo6_5min.xa"),
+                              str(tmp / "c_cli.wav")], capture_output=True,
+                             timeout=120)
+    if (sat_cli.returncode, big_cli.returncode) != (0, 0) or sha1(
+            sat_cli.stdout) != SATURATION_WAV_SHA1 or (
+            tmp / "c_cli.wav").read_bytes() != ref["stereo6_5min"]:
+        raise AssertionError(f"installed C CLI: {sat_cli.stderr[-500:]!r}"
+                             f" {big_cli.stderr[-500:]!r}")
+    phase(4, "abi_install_c_client", pkg_config=pkg is not None,
+          flags=repr(" ".join(flags)), saturation_sha1="match",
+          c_cli_saturation="match", c_cli_5min_wav="match",
+          seconds=f"{time.perf_counter() - t0:.3f}")
+    return {"streaming_s": runs, "native_ms": native_ms,
+            "card_ms": child["call_ms"], "launches": child["launches"],
+            "calls": child["calls"], "samples": rf.samples * rf.channels}
+
+
+#: The C client of phase 4: checks the API on a hand-made header, then
+#: decodes the XA file on stdin to a WAV on stdout through the installed
+#: library.
+C_CLIENT = r"""
+#include <assert.h>
+#include <errno.h>
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <bjxa.h>
+
+int main(void) {
+    uint8_t hdr[32] = "KWD1";
+    hdr[4] = 25; hdr[8] = 32; hdr[12] = 0x28; hdr[13] = 0x23;
+    hdr[14] = 6; hdr[15] = 1;
+    bjxa_decoder_t *dec = bjxa_decoder();
+    bjxa_format_t fmt;
+    uint8_t block[25] = {0};
+    int16_t one[32];
+    assert(bjxa_parse_header(dec, hdr, sizeof hdr) == 32);
+    assert(bjxa_decode(dec, one, sizeof one, block, sizeof block) == 1);
+    assert(bjxa_decode(dec, one, sizeof one, block, sizeof block) == -1);
+    assert(errno == EPROTO);
+    assert(strcmp(bjxa_tpu_version(), "0.5.0") == 0);
+
+    static uint8_t xa[1 << 20];
+    size_t n = fread(xa, 1, sizeof xa, stdin);
+    if (bjxa_parse_header(dec, xa, n) != 32) return 2;
+    if (bjxa_decode_format(dec, &fmt) != 0) return 3;
+    uint8_t riff[44];
+    if (bjxa_dump_riff_header(dec, riff, sizeof riff) != 44) return 4;
+    int16_t *pcm = malloc(fmt.blocks * fmt.block_size_pcm);
+    if (bjxa_decode(dec, pcm, fmt.blocks * fmt.block_size_pcm, xa + 32,
+                    n - 32) != (int)fmt.blocks) return 5;
+    fwrite(riff, 1, sizeof riff, stdout);
+    if (bjxa_fwrite_pcm(pcm, fmt.data_len_pcm, stdout) != 0) return 6;
+    free(pcm);
+    return bjxa_free_decoder(&dec);
+}
+"""
+
+
+def streaming_timings(torch, dev, gpu: str, st: dict) -> dict:
+    """Phase 5 for the streaming codec and the C ABI: ``decode
+    --streaming`` of the 5-minute file; the streaming Encoder's search a
+    block on the card (kernel 7 at L = 2, its launch timed alone by CUDA
+    events) against the native host search, and its plain version on the
+    same piece; ``benchmarks/abi.py``.  Returns kernel 7's and the plain
+    version's ms at the Encoder's shape."""
+    from bjxa_tpu_torch.ops import cuda_encode
+
+    t_all = time.perf_counter()
+
+    s = statistics.median(st["streaming_s"])
+    phase(5, "time_decode_streaming", gpu=repr(gpu), stream="stereo6_5min",
+          samples=st["samples"], seconds=f"{s:.6f}",
+          msamples_per_s=f"{st['samples'] / s / 1e6:.3f}",
+          runs=[f"{r:.6f}" for r in st["streaming_s"]])
+    # every call but the last (a partial piece)
+    card = statistics.median(st["card_ms"][:-1])
+    host = statistics.median(st["native_ms"][:-1])
+    rng = np.random.default_rng(SEED + 23)
+    pcm = torch.from_numpy(rng.integers(
+        -20000, 20000, size=(CODEC_PIECE_BLOCKS, 32, 2)).astype(np.int16)
+    ).to(dev)
+    state = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    k_ms = cuda_ms(torch, lambda: cuda_encode.encode_search_lanes(
+        pcm, state, bits=6), reps=5)
+    # its plain version on the whole of the same input, timed once (a
+    # Python loop of ~20 small launches a sample: seconds, not ms)
+    got = cuda_encode.encode_search_lanes(pcm, state, bits=6)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = cuda_encode.encode_search_lanes_plain(pcm, state, bits=6)
+    stop.record()
+    stop.synchronize()
+    p_ms = start.elapsed_time(stop)
+    for g, w in zip(got, want):
+        exact_err(g.cpu(), w.cpu())
+    phase(5, "time_codec_encoder_search", gpu=repr(gpu),
+          piece_blocks=CODEC_PIECE_BLOCKS, lanes=2, calls=st["calls"],
+          card_call_ms=f"{card:.3f}", native_call_ms=f"{host:.3f}",
+          card_us_per_block=f"{card * 1e3 / CODEC_PIECE_BLOCKS:.3f}",
+          native_us_per_block=f"{host * 1e3 / CODEC_PIECE_BLOCKS:.3f}",
+          kernel_ms=f"{k_ms:.6f}",
+          kernel_us_per_block=f"{k_ms * 1e3 / CODEC_PIECE_BLOCKS:.4f}",
+          plain_ms=f"{p_ms:.3f}", plain_check_blocks=CODEC_PIECE_BLOCKS)
+    res = subprocess.run(
+        [sys.executable, "-m", "bjxa_tpu_torch.benchmarks.abi"], cwd=ROOT,
+        env=child_env(None), capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"benchmarks.abi: exit {res.returncode}"
+                             f" {res.stderr[-2000:]}")
+    rec = json.loads(res.stdout.splitlines()[-1])
+    if rec["device"] != gpu or rec["metric"] != "abi_decode":
+        raise AssertionError(f"benchmarks.abi printed {rec}")
+    print(f"phase 5 abi: {json.dumps(rec)}", flush=True)
+    phase(5, "streaming_timings", seconds=f"{time.perf_counter() - t_all:.3f}")
+    return {"ms": k_ms, "plain_ms": p_ms}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2445,6 +2878,7 @@ def main() -> int:
 
     var_ptx = variants_ptxas(_build.library(), report,
                              torch.cuda.current_device())
+    build_native()
 
     # ---- phase 2: kernels against their plain versions ----------------------
     rng = np.random.default_rng(SEED)
@@ -2460,6 +2894,7 @@ def main() -> int:
         torch, dev, np.random.default_rng(SEED + 17))
     worst.update(check_measurement_kernels(
         torch, dev, np.random.default_rng(SEED + 11)))
+    wrap = check_wrappers(torch, dev, np.random.default_rng(SEED + 19))
     phase(2, "kernels_equal_plain", **worst)
 
     # ---- phase 3: known answers ---------------------------------------------
@@ -2520,6 +2955,7 @@ def main() -> int:
                                      f" {res.stderr.decode()[-2000:]}")
             outs[plat] = (tmp / f"bad_{plat}.wav").read_bytes()
         prefix = 44 + bad_block * 32 * channels * 2
+        bad_wav = outs["cpu"]
         if outs[None] != outs["cpu"] or len(outs[None]) != prefix:
             raise AssertionError("invalid-profile prefix differs")
         phase(4, "cli_invalid_profile", exit=1,
@@ -2623,6 +3059,7 @@ def main() -> int:
     enc_corp = encode_corpus_main_path(torch, dev, rng, ctmp)
     worst["encode_search"] = max(worst["encode_search"], enc_corp["err"])
     meas_launches = measurement_main_path(torch)
+    codec_st = streaming_main_path(images, ref, bad, bad_wav, enc)
 
     # ---- phase 5: timings on the card ---------------------------------------
     ms = {}
@@ -2716,6 +3153,7 @@ def main() -> int:
           measured_bound_ms=f"{stream['measured_bound_ms']:.6f}",
           share=f"{stream['measured_bound_ms'] / stream['ms']:.4f}")
     bench_children(gpu)
+    codec_ms = streaming_timings(torch, dev, gpu, codec_st)
 
     # each kernel's bound at the shape it was timed at: every input byte
     # read once and every output byte written once over the memory rate, or
@@ -2755,12 +3193,14 @@ def main() -> int:
     summary = {"kernels": [
         entry("decode_lanes", "bjxa_tpu/ops/pallas_decode.py:83",
               {"decode_fixpoint_lanes": fixpoint_lanes_launches,
+               "decode_arrays_fixpoint": wrap["decode_arrays_fixpoint"],
                "benchmarks": meas_launches["decode_lanes"]},
               timed("decode_lanes", ms[("decode_lanes", True)]),
               also_replaces="bjxa_tpu/ops/pallas_decode.py:141"),
         entry("filter_lanes", "bjxa_tpu/ops/pallas_filter.py:36",
               {"short_decode_old_route":
-               short_ms["routes"]["old"]["launches"]["filter_lanes"]},
+               short_ms["routes"]["old"]["launches"]["filter_lanes"],
+               "decode_batch": wrap["decode_batch"]},
               timed("filter_lanes", (
                   short_ms[("filter_lanes", True)]["ms"],
                   short_ms[("filter_lanes", True)]["plain_ms"])),
@@ -2791,8 +3231,11 @@ def main() -> int:
               {"wav_to_xa": enc["launches"],
                "encode_wav_stream": seg_launches["encode_search"],
                "encode_corpus": enc_corp["launches"],
+               "Encoder.encode": codec_st["launches"],
                "bench": meas_launches["encode_search"]},
-              timed("encode_search", enc_ms)),
+              timed("encode_search", enc_ms),
+              encoder_piece_ms=codec_ms["ms"],
+              encoder_piece_plain_ms=codec_ms["plain_ms"]),
         entry("decode_words", "bjxa_tpu/ops/pallas_decode.py:149",
               {"decode_corpus": corp["launches"],
                "bench": meas_launches["decode_words"]},

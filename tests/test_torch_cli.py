@@ -135,27 +135,38 @@ def test_decode_missing_input_matches(cpu_platform, tmp_path):
 )
 def test_usage_paths_match(cpu_platform, args):
     """Same exit code and error label; the usage text itself lists only
-    the actions this port has."""
+    the actions and options this port has."""
     (tc, tout, terr), (jc, jout, jerr) = both(args)
     assert tc == jc
     assert terr.split("\n")[0] == jerr.split("\n")[0]
     assert tout[:6] == jout[:6]
     usage = tout.decode() if args == ["help"] else terr
-    assert "decode [--segment-blocks <n>] [<xa file> [<wav file>]]" in usage
+    assert ("decode [--streaming] [--segment-blocks <n>] [<xa file>"
+            " [<wav file>]]" in usage)
     assert "encode [--bits <4|6|8>] [--truncate]" in usage
     assert ("corpus [--batch-files <n>] [--depth <k>] [--manifest <path>]"
             in usage)
-    assert "abi" not in usage and "--devices" not in usage
+    assert "  abi --install <prefix>\n" in usage
+    assert "--devices" not in usage
 
 
 @pytest.mark.parametrize("flag", ["--streaming", "--devices",
                                   "--segment-blocks"])
 def test_unported_decode_flags_fail(cpu_platform, monkeypatch, tmp_path,
                                     flag):
-    """``--streaming`` and ``--devices`` are not ported and say so;
-    ``--segment-blocks`` is, and answers as bjxa_tpu's CLI does: a missing
-    input, an invalid count, and a segmented decode's bytes."""
-    if flag != "--segment-blocks":
+    """``--devices`` is not ported and says so; ``--streaming`` and
+    ``--segment-blocks`` are, and answer as bjxa_tpu's CLI does: a missing
+    input, and the bytes and stderr of a valid, a cut and an
+    invalid-profile stream, equal to the whole-file decode's."""
+    if flag == "--streaming":
+        got, want = both(["decode", flag, "2", str(tmp_path / "x.xa")])
+        assert got == want and got[0] == 1 and got[2].startswith("Error: ")
+        for name, data in STREAMS.items():
+            got, want = both(["decode", flag, "-", "-"], data())
+            assert got == want, name
+            assert got == run_cli(tcli.main, ["decode"], data()), name
+        return
+    if flag == "--devices":
         code, out, err = run_cli(tcli.main, ["decode", flag, "2", "x.xa"])
         assert code == 1 and out == b""
         assert err.startswith(f"bjxa: {flag} is not yet ported\n")
@@ -170,6 +181,102 @@ def test_unported_decode_flags_fail(cpu_platform, monkeypatch, tmp_path,
         got, want = both(["decode", flag, "64", "-", "-"], STREAMS[name]())
         assert got == want
         assert got == run_cli(tcli.main, ["decode"], STREAMS[name]())
+
+
+@pytest.mark.parametrize("native", ["on", "off"])
+@pytest.mark.parametrize("name", ["stereo6", "truncated", "invalid_profile",
+                                  "truncated_bad"])
+def test_decode_streaming_files_match(cpu_platform, monkeypatch, tmp_path,
+                                      native, name):
+    """``decode --streaming`` between files, with the native library and
+    under ``BJXA_NO_NATIVE``: the twins' exit code, stdio and WAV bytes."""
+    if native == "off":
+        monkeypatch.setenv("BJXA_NO_NATIVE", "1")
+        from bjxa_tpu import native as jnative
+
+        monkeypatch.setattr(jnative, "available", lambda: False)
+    src = tmp_path / "in.xa"
+    src.write_bytes(STREAMS[name]())
+    runs = []
+    for main, out in ((tcli.main, "t.wav"), (jcli.main, "j.wav")):
+        runs.append(run_cli(main, ["decode", "--streaming", str(src),
+                                   str(tmp_path / out)]))
+    assert runs[0] == runs[1]
+    assert ((tmp_path / "t.wav").read_bytes()
+            == (tmp_path / "j.wav").read_bytes())
+
+
+def test_decode_streaming_needs_no_device(monkeypatch, tmp_path):
+    """The streaming codec runs on the host: without a card and without
+    ``BJXA_PLATFORM=cpu`` it still decodes, where the whole-file path
+    refuses."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    monkeypatch.delenv("BJXA_PLATFORM", raising=False)
+    data = STREAMS["stereo6"]()
+    code, out, err = run_cli(tcli.main, ["decode", "--streaming"], data)
+    assert (code, err) == (0, "")
+    monkeypatch.setenv("BJXA_PLATFORM", "cpu")
+    assert run_cli(tcli.main, ["decode"], data) == (code, out, err)
+
+
+@pytest.mark.parametrize(
+    "args", [[], ["--install"], ["--frob", "x"], ["--install", "a", "b"]],
+    ids=["none", "no_prefix", "unknown", "too_many"])
+def test_abi_misuse_matches(cpu_platform, args):
+    """``abi`` without exactly ``--install <prefix>``: exit 1 and the same
+    error line (the usage below it lists each tool's own actions)."""
+    (tc, tout, terr), (jc, jout, jerr) = both(["abi", *args])
+    assert tc == jc == 1 and tout == jout == b""
+    assert terr.split("\n")[0] == jerr.split("\n")[0] == (
+        "bjxa: abi requires --install <prefix>")
+
+
+def test_abi_install_matches(cpu_platform, tmp_path):
+    """``abi --install``: the same roles on stdout, the same header and
+    pkg-config file, a working installed CLI; an unusable prefix fails
+    with the same label; ``BJXA_NO_NATIVE`` refuses in both."""
+    runs = {}
+    for tag, main in (("t", tcli.main), ("j", jcli.main)):
+        prefix = tmp_path / tag
+        code, out, err = run_cli(main, ["abi", "--install", str(prefix)])
+        runs[tag] = (code, out.decode().replace(str(prefix), "<prefix>"),
+                     err)
+    assert runs["t"] == runs["j"]
+    assert runs["t"][0] == 0 and runs["t"][1].split() == [
+        "lib", "<prefix>/lib/libbjxa.so.0", "header",
+        "<prefix>/include/bjxa.h", "pkgconfig",
+        "<prefix>/lib/pkgconfig/bjxa.pc", "bin", "<prefix>/bin/bjxa"]
+    for rel in ("include/bjxa.h",):
+        assert ((tmp_path / "t" / rel).read_bytes()
+                == (tmp_path / "j" / rel).read_bytes())
+    pcs = [(tmp_path / t / "lib/pkgconfig/bjxa.pc").read_text().replace(
+        str(tmp_path / t), "<prefix>") for t in "tj"]
+    assert pcs[0] == pcs[1]
+    res = subprocess.run([str(tmp_path / "t" / "bin" / "bjxa"), "decode"],
+                         input=STREAMS["stereo6"](), capture_output=True)
+    assert res.returncode == 0
+    assert res.stdout == run_cli(tcli.main, ["decode"],
+                                 STREAMS["stereo6"]())[1]
+
+    blocker = tmp_path / "file"
+    blocker.write_bytes(b"")
+    got, want = both(["abi", "--install", str(blocker)])
+    assert got == want and got[0] == 1 and got[2] == "abi: Not a directory\n"
+
+
+def test_abi_install_refused_without_native(cpu_platform, monkeypatch,
+                                            tmp_path):
+    from bjxa_tpu.native import abi as jabi
+
+    monkeypatch.setenv("BJXA_NO_NATIVE", "1")
+    monkeypatch.setattr(jabi, "_lib", None)
+    monkeypatch.setattr(jabi, "_tried", False)
+    got, want = both(["abi", "--install", str(tmp_path / "p")])
+    assert got[0] == want[0] == 1 and got[1] == want[1] == b""
+    assert got[2].startswith("abi: C ABI library unavailable")
+    assert want[2].startswith("abi: C ABI library unavailable")
+    assert not (tmp_path / "p").exists()
 
 
 @pytest.mark.parametrize("flag", ["--devices", "--coordinator",

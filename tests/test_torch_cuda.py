@@ -1096,3 +1096,89 @@ def test_corpus_oversized_files_card_match_cpu(dev, tmp_path, monkeypatch):
     assert "segmented" in card.counters.stage_ms
     for p in sorted((tmp_path / "cpu").glob("*.wav")):
         assert (tmp_path / "card" / p.name).read_bytes() == p.read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# the streaming codec's device search and the channel-major wrappers
+
+
+def _codec_pcm(frames, channels, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(frames)[:, None]
+    sig = 12000 * np.sin(t / (6.0 + np.arange(channels)))
+    sig += rng.normal(0, 3000, size=(frames, channels))
+    return np.clip(sig, -32768, 32767).astype(np.int16)
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_encoder_device_search_matches_cpu_and_native(dev, monkeypatch, bits,
+                                                      channels):
+    """The codec's search without the native library: kernel 7 on the
+    card, one launch a call, the carried state across calls; the same
+    bytes as its plain version on the CPU and as the native library."""
+    from bjxa_tpu_torch import RiffFormat, codec, native
+
+    pcm = _codec_pcm(32 * 50 + 11, channels, seed=bits + channels)
+    riff = RiffFormat(pcm.size * 2, 44100, channels)
+    cuts = [0, 32 * 7, 32 * 20, 32 * 21, len(pcm)]
+
+    def run(device):
+        enc = codec.Encoder(device=device)
+        enc.init(riff, bits)
+        return enc.dump_header() + b"".join(
+            enc.encode(pcm[a:b], search=True)
+            for a, b in zip(cuts, cuts[1:]))
+
+    want_native = run(None)  # the native library is on
+    monkeypatch.setattr(native, "available", lambda: False)
+    before = cuda_encode.LAUNCHES
+    card = run(None)
+    assert cuda_encode.LAUNCHES - before == len(cuts) - 1
+    before = cuda_encode.LAUNCHES
+    cpu = run("cpu")
+    assert cuda_encode.LAUNCHES == before
+    assert card == cpu == want_native
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_decode_arrays_fixpoint_card_matches_cpu(dev, bits, channels):
+    """On the card the wrapper runs the lanes kernel, rounds + 1 launches,
+    and gives the CPU's frames, end state, validity and rounds."""
+    from bjxa_tpu_torch.ops import decode_arrays_fixpoint
+
+    rng = np.random.default_rng(bits * 3 + channels)
+    B = 1009
+    raw = rng.integers(0, 256, size=(channels, B, 4 * bits + 1),
+                       dtype=np.uint8)
+    raw[..., 0] = (rng.integers(0, 5, size=(channels, B)) << 4
+                   | rng.integers(0, 13, size=(channels, B)))
+    raw[channels - 1, 500, 0] = 0x7B
+    state = rng.integers(-(2**15), 2**15, size=(channels, 2)).astype(np.int32)
+    b, s = torch.from_numpy(raw), torch.from_numpy(state)
+    before = cuda_decode.LAUNCHES
+    got = decode_arrays_fixpoint(b.to(dev), s.to(dev), bits=bits,
+                                 num_chunks=16)
+    assert cuda_decode.LAUNCHES - before == got[3] + 1
+    want = decode_arrays_fixpoint(b, s, bits=bits, num_chunks=16)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g.cpu(), w)
+    assert got[3] == want[3]
+
+
+def test_decode_batch_card_matches_cpu(dev):
+    """One launch of the filter kernel decodes the batch as the CPU does."""
+    from bjxa_tpu_torch.ops import decode_batch
+
+    rng = np.random.default_rng(11)
+    raw = rng.integers(0, 256, size=(32, 2, 40, 33), dtype=np.uint8)
+    raw[..., 0] = (rng.integers(0, 5, size=(32, 2, 40)) << 4
+                   | rng.integers(0, 13, size=(32, 2, 40)))
+    state = rng.integers(-(2**15), 2**15, size=(32, 2, 2)).astype(np.int32)
+    b, s = torch.from_numpy(raw), torch.from_numpy(state)
+    before = cuda_filter.LAUNCHES
+    got = decode_batch(b.to(dev), s.to(dev), bits=8)
+    assert cuda_filter.LAUNCHES - before == 1
+    for g, w in zip(got, decode_batch(b, s, bits=8)):
+        assert torch.equal(g.cpu(), w)
