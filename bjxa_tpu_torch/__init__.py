@@ -4,7 +4,8 @@ hand-written CUDA kernels for NVIDIA Hopper.
 A port of :mod:`bjxa_tpu` (the JAX/Pallas engine, kept as the reference).
 This package holds the whole-file XA -> WAVE decode path, the
 WAVE -> XA profile-search encode path, their segmented bounded-memory
-twins, the batched corpus engine and the measurement scripts
+twins, the batched corpus engine, the multi-device and multi-process layer
+(:mod:`bjxa_tpu_torch.parallel`) and the measurement scripts
 (:mod:`bjxa_tpu_torch.bench`, :mod:`bjxa_tpu_torch.benchmarks`,
 :mod:`bjxa_tpu_torch.tools`): header parsing and validation with the same
 typed errno-style errors, the chunk-parallel exact fixed-point decoder and

@@ -26,7 +26,11 @@ from bjxa_tpu_torch.format import (
     dump_pcm,
     load_pcm,
 )
-from bjxa_tpu_torch.ops.decode import decode_bytes, iter_decode_segments
+from bjxa_tpu_torch.ops.decode import (
+    decode_bytes,
+    iter_decode_segments,
+    use_sp_mesh,
+)
 from bjxa_tpu_torch.ops.encode import (
     encode_stream_blocks,
     iter_encode_segments,
@@ -64,6 +68,9 @@ def encode_pcm(
     *,
     search: bool = True,
     device: torch.device | str,
+    mesh=None,
+    sp_axis: str = "sp",
+    sp_min_blocks: int = 2048,
 ) -> bytes:
     """Encode interleaved PCM ``int16[samples, C]`` on ``device`` to an XA
     file image.
@@ -71,7 +78,12 @@ def encode_pcm(
     ``search=True`` runs the per-block exhaustive filter-profile sweep
     (through the chunk-parallel fixed point for long streams, bit-identical
     to the sequential search); ``search=False`` reproduces the reference
-    encoder byte-for-byte (profile 0, truncation only).
+    encoder byte-for-byte (profile 0, truncation only).  With a ``mesh``
+    whose ``sp_axis`` has more than one device and at least
+    ``sp_min_blocks`` blocks, the search's block range shards across the
+    mesh's devices instead (the boundary-state ring of
+    :func:`bjxa_tpu_torch.parallel.sharded.encode_file_sharded`),
+    bit-identical to the sequential greedy search.
     """
     if bits not in (4, 6, 8):
         raise BjxaInvalidState(f"encode_pcm: invalid bit depth {bits}")
@@ -87,11 +99,19 @@ def encode_pcm(
     nblocks = -(-samples // BLOCK_SAMPLES)
     padded = np.zeros((nblocks * BLOCK_SAMPLES, channels), np.int16)
     padded[:samples] = pcm
-    lanes = torch.from_numpy(
-        padded.reshape(nblocks, BLOCK_SAMPLES, channels)
-    ).to(device)
-    blocks = encode_stream_blocks(lanes, bits=bits, search=search)
-    payload = blocks.cpu().numpy().tobytes()
+    lanes = padded.reshape(nblocks, BLOCK_SAMPLES, channels)
+    if search and use_sp_mesh(mesh, sp_axis) and nblocks >= sp_min_blocks:
+        from bjxa_tpu_torch.parallel.sharded import encode_file_sharded
+
+        blocks_np, _end, _rounds = encode_file_sharded(
+            lanes, np.zeros((channels, 2), np.int32), bits=bits, mesh=mesh,
+            axis=sp_axis,
+        )
+        payload = blocks_np.tobytes()
+    else:
+        blocks = encode_stream_blocks(torch.from_numpy(lanes).to(device),
+                                      bits=bits, search=search)
+        payload = blocks.cpu().numpy().tobytes()
 
     fmt = XAFormat(
         data_len=len(payload),
@@ -111,9 +131,11 @@ def decode_xa_stream(
     *,
     device: torch.device | str,
     segment_blocks: int | None = None,
+    mesh=None,
 ) -> XAFormat:
     """Segmented bounded-memory XA->WAV conversion between binary streams,
-    decoding on ``device``.
+    decoding on ``device`` (or, with a ``mesh`` carrying an ``sp`` axis of
+    several devices, each segment sharded across them).
 
     Reads the XA header from ``fin`` (unless a pre-parsed ``fmt`` is given,
     in which case ``fin`` must be positioned at the payload), writes the
@@ -132,7 +154,8 @@ def decode_xa_stream(
         dump_riff_header(fmt.data_len_pcm, fmt.samples_rate, fmt.channels)
     )
     kw = {} if segment_blocks is None else {"segment_blocks": segment_blocks}
-    for pcm in iter_decode_segments(fin.read, fmt, device=device, **kw):
+    for pcm in iter_decode_segments(fin.read, fmt, device=device, mesh=mesh,
+                                    **kw):
         fout.write(dump_pcm(pcm))
     return fmt
 
@@ -146,9 +169,11 @@ def encode_wav_stream(
     rf=None,
     device: torch.device | str,
     segment_blocks: int | None = None,
+    mesh=None,
 ) -> XAFormat:
     """Segmented bounded-memory WAV->XA conversion between binary streams,
-    encoding on ``device``.
+    encoding on ``device`` (or, with a ``mesh`` carrying an ``sp`` axis of
+    several devices, each segment's search sharded across them).
 
     Reads the RIFF header from ``fin`` (unless a pre-parsed ``rf`` is
     given, with ``fin`` at the PCM body), writes the XA header and packed
@@ -172,7 +197,7 @@ def encode_wav_stream(
     fout.write(dump_xa_header(fmt))
     for blocks in iter_encode_segments(
         fin.read, rf.channels, rf.samples, bits=bits, search=search,
-        device=device, segment_blocks=segment_blocks,
+        device=device, segment_blocks=segment_blocks, mesh=mesh,
     ):
         fout.write(blocks)
     return fmt

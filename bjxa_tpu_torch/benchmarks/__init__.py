@@ -13,7 +13,11 @@ the JAX package's ``benchmarks/`` directory:
   (``bench_encode.py``, ``bench_corpus.py``, ``bench_segmented.py``);
 * ``... .abi`` — whole-file decode through the drop-in C ABI on one host
   core, beside the reference binary when its sources are at hand
-  (``bench_abi.py``).
+  (``bench_abi.py``);
+* ``... .mesh_flat`` / ``... .multihost`` — the mesh path's words decode
+  against its lanes decode on a one-device mesh, and a corpus job's
+  files/s at 1, 2 and 4 processes (``bench_mesh_flat.py``,
+  ``bench_multihost.py``).
 
 Card-only scripts of the port's own: ``search_unroll``, ``stream_store``
 and ``u8_ring`` (kernel ablations), and ``short_stream.py``, run as a file

@@ -1,23 +1,31 @@
 """The ``bjxa`` command-line tool, PyTorch/CUDA edition.
 
-Same surface as the reference CLI (``src/bjxa.c:36-52``) for the actions
-ported so far: ``help``, ``decode [<xa> [<wav>]]`` and ``encode [--bits
-<4|6|8>] [--truncate] [<wav> [<xa>]]``, with ``-`` or omitted filenames
-meaning stdin/stdout, and :mod:`bjxa_tpu.cli`'s extensions: ``corpus`` for
-whole directories on one device, ``decode --streaming`` (the incremental
-block-at-a-time codec of :mod:`bjxa_tpu_torch.codec` on the host, the same
-bytes as the whole-file path) and ``abi --install <prefix>`` (the drop-in
-libbjxa-compatible C library, :mod:`bjxa_tpu_torch.native.abi`).  Exit
-codes, output bytes and error labels are those of :mod:`bjxa_tpu.cli` (the
-reference's perror style, ``<failing stage>: <strerror>``), so scripted
-callers keep working.  As there, ``encode``
-runs the filter-profile search by default and ``--truncate`` reproduces
-the reference's truncation-only encoder byte-for-byte.
+Same surface as the reference CLI (``src/bjxa.c:36-52``): ``help``,
+``decode [<xa> [<wav>]]`` and ``encode [--bits <4|6|8>] [--truncate]
+[<wav> [<xa>]]``, with ``-`` or omitted filenames meaning stdin/stdout, and
+:mod:`bjxa_tpu.cli`'s extensions: ``corpus`` for whole directories,
+``decode --streaming`` (the incremental block-at-a-time codec of
+:mod:`bjxa_tpu_torch.codec` on the host, the same bytes as the whole-file
+path), ``abi --install <prefix>`` (the drop-in libbjxa-compatible C
+library, :mod:`bjxa_tpu_torch.native.abi`), ``--devices`` and the
+multi-process corpus flags.  Exit codes, output bytes and error labels are
+those of :mod:`bjxa_tpu.cli` (the reference's perror style, ``<failing
+stage>: <strerror>``), so scripted callers keep working.  As there,
+``encode`` runs the filter-profile search by default and ``--truncate``
+reproduces the reference's truncation-only encoder byte-for-byte.
 
 The device is resolved once per action: ``BJXA_PLATFORM=cpu`` selects the
 CPU, anything else the CUDA card.  Without a card the tool exits 1 and
 says so; it never carries on on the CPU on its own.  ``decode
---streaming`` and ``abi`` run on the host alone and need no device.
+--streaming`` and ``abi`` run on the host alone and need no device.  A
+process meshes its local devices (:func:`_local_devices`: every CUDA
+device, or the CPU alone under ``BJXA_PLATFORM=cpu``) when there are
+several; ``--devices``/``BJXA_DEVICES`` caps their count, and 1 keeps the
+single-device path.  ``corpus --coordinator/--num-processes/--process-id``
+(or ``BJXA_COORDINATOR``/``BJXA_NUM_PROCESSES``/``BJXA_PROCESS_ID``) join a
+multi-process job (:mod:`bjxa_tpu_torch.parallel.distributed`): each
+process converts its share of the files on its own devices, and process 0
+prints the job's totals.
 """
 
 from __future__ import annotations
@@ -48,8 +56,13 @@ Available actions:
   help
     Show this message and exit.
 
-  decode [--streaming] [--segment-blocks <n>] [<xa file> [<wav file>]]
+  decode [--streaming] [--devices <n>] [--segment-blocks <n>]
+         [<xa file> [<wav file>]]
     Read an XA file and convert it into a WAV file.
+    Long streams shard their block range across all
+    local devices (sequence parallel); --devices caps
+    the device count (BJXA_DEVICES env equivalent;
+    1 forces single-device).
     --segment-blocks streams the file through the device
     in n-block segments (bounded memory, automatic above
     256 MB; override with BJXA_SEGMENT_THRESHOLD).
@@ -58,12 +71,16 @@ Available actions:
     block by block on the host (the native library, or
     numpy when BJXA_NO_NATIVE is set), same bytes.
 
-  encode [--bits <4|6|8>] [--truncate] [--segment-blocks <n>]
-         [<wav file> [<xa file>]]
+  encode [--bits <4|6|8>] [--truncate] [--devices <n>]
+         [--segment-blocks <n>] [<wav file> [<xa file>]]
     Read a WAV file and convert it into an XA file.
     The default number of bits per sample, when left
     unspecified is 6. --truncate disables the filter
     profile search (reference-compatible output).
+    Long streams shard the search's block range across
+    all local devices (sequence parallel); --devices
+    caps the device count (BJXA_DEVICES env equivalent;
+    1 forces single-device).
     --segment-blocks streams the file through the device
     in n-block segments (bounded memory, automatic above
     256 MB of PCM).
@@ -79,31 +96,106 @@ Available actions:
     --cflags --libs bjxa)`.
 
   corpus [--batch-files <n>] [--depth <k>] [--manifest <path>]
-         [--encode [--bits <4|6|8>] [--truncate]] [--trace <dir>]
-         [--stats] <xa dir> <wav dir>
+         [--devices <n>] [--encode [--bits <4|6|8>] [--truncate]]
+         [--trace <dir>] [--stats] <xa dir> <wav dir>
     Decode every *.xa file in a directory to WAV files,
     batched on the device, restartable via a JSONL
     manifest (reruns skip already-converted files).
+    On a multi-device host the file/channel lanes of
+    every batch shard across all local devices (data
+    parallel); --devices caps the device count
+    (BJXA_DEVICES env equivalent; 1 forces one device).
     --depth bounds in-flight device batches and the
     host write backlog (default 3).
     With --encode (plus optional --bits/--truncate) the
     direction reverses: every *.wav encodes to XA.
-    --trace <dir> captures a torch.profiler trace;
-    --stats prints throughput rates.
+    Multi-host: --coordinator <host:port> --num-processes
+    <n> --process-id <i> (or BJXA_COORDINATOR /
+    BJXA_NUM_PROCESSES / BJXA_PROCESS_ID) shard the file
+    list across cooperating processes; the summary line
+    reports cross-host totals. --trace <dir> captures a
+    torch.profiler trace; --stats prints throughput rates.
     Runs on the CUDA device; BJXA_PLATFORM=cpu runs on
     the CPU instead.
 """
 
-#: Decode options of :mod:`bjxa_tpu.cli` that this tool does not have yet.
-NOT_PORTED = ("--devices",)
-#: Encode options of :mod:`bjxa_tpu.cli` that this tool does not have yet.
-ENCODE_NOT_PORTED = ("--devices",)
-#: Corpus options of :mod:`bjxa_tpu.cli` that this tool does not have yet
-#: (multi-device and multi-process runs), and their environment variables.
-CORPUS_NOT_PORTED = ("--devices", "--coordinator", "--num-processes",
-                     "--process-id")
-CORPUS_ENV_NOT_PORTED = ("BJXA_DEVICES", "BJXA_COORDINATOR",
-                         "BJXA_NUM_PROCESSES", "BJXA_PROCESS_ID")
+
+def _local_devices():
+    """The devices this process may mesh: every CUDA device, or the CPU
+    alone under ``BJXA_PLATFORM=cpu``."""
+    import torch
+
+    if os.environ.get("BJXA_PLATFORM") == "cpu":
+        return [torch.device("cpu")]
+    from bjxa_tpu_torch.parallel.mesh import local_devices
+
+    return local_devices()
+
+
+def _mesh_devices(devices_opt: int | None):
+    """Resolve the local device list for CLI auto-meshing.
+
+    ``devices_opt`` (the --devices flag) falls back to ``BJXA_DEVICES``;
+    unset means all local devices.  Local devices only: in a multi-process
+    job each process meshes the devices it owns, and processes meet at the
+    file-list level.
+
+    Returns the device list, or None when only one device would be used
+    (the single-device paths).
+    """
+    n = devices_opt
+    source = "--devices"
+    if n is None:
+        env = os.environ.get("BJXA_DEVICES")
+        if env:
+            source = "BJXA_DEVICES"
+            try:
+                n = int(env)
+            except ValueError:
+                raise ValueError(f"Invalid BJXA_DEVICES {env!r}")
+    devs = _local_devices()
+    if n is not None:
+        if n < 1 or n > len(devs):
+            raise ValueError(
+                f"{source} {n} out of range (1..{len(devs)} available)"
+            )
+        devs = devs[:n]
+    return devs if len(devs) > 1 else None
+
+
+def _dp_mesh(devices_opt: int | None):
+    """Data-parallel mesh over the local devices (corpus lane sharding),
+    or None for single-device runs."""
+    devs = _mesh_devices(devices_opt)
+    if devs is None:
+        return None
+    from bjxa_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devs, dp=len(devs), sp=1)
+
+
+def _sp_mesh(devices_opt: int | None):
+    """Sequence-parallel mesh over the local devices (long-stream block
+    sharding), or None for single-device runs."""
+    devs = _mesh_devices(devices_opt)
+    if devs is None:
+        return None
+    from bjxa_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devs, dp=len(devs), sp=1, axis_names=("sp", "_"))
+
+
+def _explicit_sp_mesh(devices_opt: int | None):
+    """``(explicit, mesh, error)``: an explicit device request (flag or
+    ``BJXA_DEVICES``) is validated eagerly -- the user asked for devices;
+    the default path resolves its mesh only where device work happens."""
+    explicit = devices_opt is not None or bool(os.environ.get("BJXA_DEVICES"))
+    if not explicit:
+        return False, None, None
+    try:
+        return True, _sp_mesh(devices_opt), None
+    except ValueError as e:
+        return True, None, f"bjxa: {e}\n"
 
 
 def _usage(prog: str, file) -> None:
@@ -175,6 +267,7 @@ def _select_device(action: str):
 
 def _cmd_decode(args: list[str], prog: str) -> int:
     streaming = False
+    devices = None
     segment_blocks = None
     while args and args[0].startswith("--"):
         if args[0] == "--streaming":
@@ -185,8 +278,11 @@ def _cmd_decode(args: list[str], prog: str) -> int:
                 return _fail(prog, "Invalid --segment-blocks")
             segment_blocks = int(args[1])
             args = args[2:]
-        elif args[0] in NOT_PORTED:
-            return _fail(prog, f"{args[0]} is not yet ported")
+        elif args[0] == "--devices":
+            if len(args) < 2 or not args[1].isdigit() or int(args[1]) < 1:
+                return _fail(prog, "Invalid --devices")
+            devices = int(args[1])
+            args = args[2:]
         else:
             break
     if len(args) > 2:
@@ -200,12 +296,16 @@ def _cmd_decode(args: list[str], prog: str) -> int:
     return _run_on_files(
         args,
         lambda fin, fout: _decode_stream(fin, fout, device, segment_blocks,
-                                         streaming),
+                                         streaming, devices),
     )
 
 
 def _decode_stream(fin, fout, device, segment_blocks=None,
-                   streaming: bool = False) -> int:
+                   streaming: bool = False, devices=None) -> int:
+    explicit, sp_mesh, err = _explicit_sp_mesh(devices)
+    if err:
+        sys.stderr.write(err)
+        return 1
     header = fin.read(XA_HEADER_SIZE)
     if header is None or len(header) < XA_HEADER_SIZE:
         sys.stderr.write("bjxa_fread_header: Input/output error\n")
@@ -229,8 +329,11 @@ def _decode_stream(fin, fout, device, segment_blocks=None,
         segment_blocks
         or fmt.data_len + fmt.data_len_pcm > segment_threshold()
     ):
+        if not explicit:
+            sp_mesh = _sp_mesh(None)
         return _decode_segmented(
-            fin, fout, fmt, segment_blocks or SEGMENT_BLOCKS, device
+            fin, fout, fmt, segment_blocks or SEGMENT_BLOCKS, device,
+            sp_mesh,
         )
 
     fout.write(
@@ -240,8 +343,13 @@ def _decode_stream(fin, fout, device, segment_blocks=None,
     if payload is None or len(payload) < fmt.data_len:
         return _decode_truncated(fout, payload or b"", fmt, device)
 
+    if not explicit:
+        sp_mesh = _sp_mesh(None)
     try:
-        pcm = decode_bytes(payload, fmt, device=device)
+        # long streams shard their block range over the local devices (the
+        # sequence-parallel ring, bit-exact); decode_bytes ignores the mesh
+        # for short streams, and there is none on a one-device host
+        pcm = decode_bytes(payload, fmt, device=device, mesh=sp_mesh)
     except BjxaProtocolError as e:
         # emit the valid prefix, as the reference's block loop does, then
         # report the failure (src/bjxa_decode.c:122-137)
@@ -281,16 +389,19 @@ def _decode_streaming(fin, fout, fmt, header: bytes) -> int:
     return 0
 
 
-def _decode_segmented(fin, fout, fmt, segment_blocks: int, device) -> int:
+def _decode_segmented(fin, fout, fmt, segment_blocks: int, device,
+                      mesh=None) -> int:
     """Bounded-memory decode loop (``api.decode_xa_stream``): segments
     stream through the device and land on disk as they finish; error
     labels match the one-shot paths (the reference's block loop emits the
-    valid prefix before failing, ``src/bjxa_decode.c:122-152``)."""
+    valid prefix before failing, ``src/bjxa_decode.c:122-152``).  With a
+    mesh each segment shards across the local devices."""
     from bjxa_tpu_torch.api import decode_xa_stream
 
     try:
         decode_xa_stream(
-            fin, fout, fmt, device=device, segment_blocks=segment_blocks
+            fin, fout, fmt, device=device, segment_blocks=segment_blocks,
+            mesh=mesh,
         )
     except EOFError:
         sys.stderr.write("fread: End of file\n")
@@ -357,6 +468,7 @@ def _decode_valid_prefix(payload, fmt, device):
 def _cmd_encode(args: list[str], prog: str) -> int:
     bits = 6
     search = True
+    devices = None
     segment_blocks = None
     while args and args[0].startswith("--"):
         if args[0] == "--bits":
@@ -378,8 +490,11 @@ def _cmd_encode(args: list[str], prog: str) -> int:
                 return _fail(prog, "Invalid --segment-blocks")
             segment_blocks = int(args[1])
             args = args[2:]
-        elif args[0] in ENCODE_NOT_PORTED:
-            return _fail(prog, f"{args[0]} is not yet ported")
+        elif args[0] == "--devices":
+            if len(args) < 2 or not args[1].isdigit() or int(args[1]) < 1:
+                return _fail(prog, "Invalid --devices")
+            devices = int(args[1])
+            args = args[2:]
         else:
             break
     if len(args) > 2:
@@ -391,12 +506,16 @@ def _cmd_encode(args: list[str], prog: str) -> int:
     return _run_on_files(
         args,
         lambda fin, fout: _encode_stream(fin, fout, bits, search, device,
-                                         segment_blocks),
+                                         segment_blocks, devices),
     )
 
 
 def _encode_stream(fin, fout, bits: int, search: bool, device,
-                   segment_blocks=None) -> int:
+                   segment_blocks=None, devices=None) -> int:
+    explicit, sp_mesh, err = _explicit_sp_mesh(devices)
+    if err:
+        sys.stderr.write(err)
+        return 1
     header = fin.read(RIFF_HEADER_SIZE)
     if header is None or len(header) < RIFF_HEADER_SIZE:
         sys.stderr.write("bjxa_fread_riff_header: Input/output error\n")
@@ -410,9 +529,11 @@ def _encode_stream(fin, fout, bits: int, search: bool, device,
     from bjxa_tpu_torch.ops.decode import SEGMENT_BLOCKS, segment_threshold
 
     if segment_blocks or rf.data_len_pcm > segment_threshold():
+        if not explicit and search:
+            sp_mesh = _sp_mesh(None)
         return _encode_segmented(
             fin, fout, rf, bits, search, segment_blocks or SEGMENT_BLOCKS,
-            device,
+            device, sp_mesh,
         )
 
     body = fin.read(rf.data_len_pcm)
@@ -421,10 +542,16 @@ def _encode_stream(fin, fout, bits: int, search: bool, device,
 
     from bjxa_tpu_torch.api import encode_pcm
 
+    if not explicit and search:
+        sp_mesh = _sp_mesh(None)
     try:
+        # long streams shard the search's block range over the local
+        # devices (the sequence-parallel ring, bit-identical to the
+        # sequential greedy search); encode_pcm ignores the mesh for short
+        # streams, and there is none on a one-device host
         xa = encode_pcm(
             load_pcm(body, rf.channels), rf.samples_rate, bits,
-            search=search, device=device,
+            search=search, device=device, mesh=sp_mesh,
         )
     except BjxaError as e:
         _perror("bjxa_encode", e)
@@ -434,18 +561,19 @@ def _encode_stream(fin, fout, bits: int, search: bool, device,
 
 
 def _encode_segmented(fin, fout, rf, bits: int, search: bool,
-                      segment_blocks: int, device) -> int:
+                      segment_blocks: int, device, mesh=None) -> int:
     """Bounded-memory encode loop (``api.encode_wav_stream``): segments of
     PCM stream through the device with the search state carried exactly,
     bit-identical to the one-shot encoder (the streaming reference loop
     writes the header before reading blocks,
-    ``src/bjxa_encode.c:108-160``)."""
+    ``src/bjxa_encode.c:108-160``).  With a mesh each segment's search
+    shards across the local devices."""
     from bjxa_tpu_torch.api import encode_wav_stream
 
     try:
         encode_wav_stream(
             fin, fout, bits, search=search, rf=rf, device=device,
-            segment_blocks=segment_blocks,
+            segment_blocks=segment_blocks, mesh=mesh,
         )
     except EOFError:
         sys.stderr.write("fread: End of file\n")
@@ -499,8 +627,12 @@ def _cmd_corpus(args: list[str], prog: str) -> int:
     bits = 6
     search = True
     saw_encode_opts = False
+    coordinator = None
+    num_processes = None
+    process_id = None
     trace_dir = None
     stats = False
+    devices = None
 
     def _take_value(args):
         if len(args) < 2:
@@ -536,6 +668,21 @@ def _cmd_corpus(args: list[str], prog: str) -> int:
             search = False
             saw_encode_opts = True
             args = args[1:]
+        elif args[0] == "--coordinator":
+            val, args = _take_value(args)
+            if val is None:
+                return _fail(prog, "Missing coordinator address")
+            coordinator = val
+        elif args[0] == "--num-processes":
+            val, args = _take_value(args)
+            if val is None or not val.isdigit() or int(val) < 1:
+                return _fail(prog, "Invalid --num-processes")
+            num_processes = int(val)
+        elif args[0] == "--process-id":
+            val, args = _take_value(args)
+            if val is None or not val.isdigit():
+                return _fail(prog, "Invalid --process-id")
+            process_id = int(val)
         elif args[0] == "--trace":
             val, args = _take_value(args)
             if val is None:
@@ -544,8 +691,11 @@ def _cmd_corpus(args: list[str], prog: str) -> int:
         elif args[0] == "--stats":
             stats = True
             args = args[1:]
-        elif args[0] in CORPUS_NOT_PORTED:
-            return _fail(prog, f"{args[0]} is not yet ported")
+        elif args[0] == "--devices":
+            val, args = _take_value(args)
+            if val is None or not val.isdigit() or int(val) < 1:
+                return _fail(prog, "Invalid --devices")
+            devices = int(val)
         else:
             return _fail(prog, f"Unknown option {args[0]}")
     if saw_encode_opts and not encode:
@@ -556,29 +706,54 @@ def _cmd_corpus(args: list[str], prog: str) -> int:
     if not os.path.isdir(in_dir):
         sys.stderr.write(f"corpus: {in_dir}: Not a directory\n")
         return 1
-    for var in CORPUS_ENV_NOT_PORTED:
-        if os.environ.get(var):
-            return _fail(prog, f"{var} is not yet ported")
     device, why = _select_device("convert")
     if device is None:
         sys.stderr.write(f"bjxa: {why}\n")
         return 1
 
+    from bjxa_tpu_torch.parallel import distributed
+
+    try:
+        distributed.initialize(coordinator, num_processes, process_id)
+    except ValueError as e:
+        return _fail(prog, str(e))
+    try:
+        return _run_corpus(prog, in_dir, out_dir, device, devices, encode,
+                           bits, search, batch_files, manifest, depth,
+                           trace_dir, stats)
+    finally:
+        distributed.shutdown()
+
+
+def _run_corpus(prog, in_dir, out_dir, device, devices, encode, bits,
+                search, batch_files, manifest, depth, trace_dir,
+                stats) -> int:
+    """The corpus job of one process, then the job's totals: every process
+    enters the reduction (a collective), process 0 prints them.  A
+    single-process run reduces to the identity."""
+    from bjxa_tpu_torch.parallel import distributed
     from bjxa_tpu_torch.parallel.corpus import decode_corpus, encode_corpus
     from bjxa_tpu_torch.utils.profiler import Profiler
 
+    try:
+        # the batches' file/channel lanes shard over every local device
+        # (data parallel, zero communication); a one-device host gets None
+        # and the single-device path
+        mesh = _dp_mesh(devices)
+    except ValueError as e:
+        return _fail(prog, str(e))
     try:
         with Profiler(trace_dir).trace():
             if encode:
                 res = encode_corpus(
                     in_dir, out_dir, device=device, bits=bits,
                     search=search, batch_files=batch_files,
-                    manifest_path=manifest, depth=depth,
+                    manifest_path=manifest, mesh=mesh, depth=depth,
                 )
             else:
                 res = decode_corpus(
                     in_dir, out_dir, device=device, batch_files=batch_files,
-                    manifest_path=manifest, depth=depth,
+                    manifest_path=manifest, mesh=mesh, depth=depth,
                 )
     except (BjxaError, OSError) as e:
         _perror("corpus", e)
@@ -586,22 +761,27 @@ def _cmd_corpus(args: list[str], prog: str) -> int:
     for path, why in sorted(res.failed.items()):
         sys.stderr.write(f"corpus: {path}: {why}\n")
 
-    counters = res.counters
-    sys.stdout.write(
-        f"converted {res.converted} skipped {res.skipped}"
-        f" failed {len(res.failed)}"
-        f" samples {counters.samples}\n"
+    converted, skipped, nfailed = distributed.allreduce_sum(
+        [res.converted, res.skipped, len(res.failed)]
     )
-    if stats:
-        rates = counters.rates()
+    counters = distributed.allreduce_counters(res.counters)
+    index, _count = distributed.process_info()
+    if index == 0:
         sys.stdout.write(
-            "stats"
-            f" files_per_s {rates['files_per_s']:.2f}"
-            f" msamples_per_s {rates['msamples_per_s']:.2f}"
-            f" mb_in_per_s {rates['mb_in_per_s']:.2f}"
-            f" mb_out_per_s {rates['mb_out_per_s']:.2f}"
-            f" elapsed_s {rates['elapsed_s']:.3f}\n"
+            f"converted {converted} skipped {skipped}"
+            f" failed {nfailed}"
+            f" samples {counters.samples}\n"
         )
+        if stats:
+            rates = counters.rates()
+            sys.stdout.write(
+                "stats"
+                f" files_per_s {rates['files_per_s']:.2f}"
+                f" msamples_per_s {rates['msamples_per_s']:.2f}"
+                f" mb_in_per_s {rates['mb_in_per_s']:.2f}"
+                f" mb_out_per_s {rates['mb_out_per_s']:.2f}"
+                f" elapsed_s {rates['elapsed_s']:.3f}\n"
+            )
     return 1 if res.failed else 0
 
 

@@ -1,7 +1,7 @@
-"""XA decode pipelines on one device: whole files and corpus batches.
+"""XA decode pipelines: whole files and corpus batches.
 
-Port of the single-device subset of :mod:`bjxa_tpu.ops.decode`.  Two
-whole-file pipelines share the lane-vectorized filter:
+Port of :mod:`bjxa_tpu.ops.decode`.  Two whole-file pipelines share the
+lane-vectorized filter:
 
 * :func:`decode_arrays` — one file, lanes = channels.  The honest
   sequential-over-blocks recurrence, used for short streams; on a CUDA
@@ -22,6 +22,10 @@ Hosts call :func:`decode_bytes`, which picks a pipeline, checks profile
 validity (EPROTO taxonomy) and trims the padded tail; or
 :func:`iter_decode_segments`, which streams a file of any size through the
 same pipelines in fixed-size block segments at O(segment) host memory.
+Given a ``mesh`` with a sequence-parallel axis of several devices, both
+shard a long stream's (or each segment's) blocks over them instead
+(:func:`bjxa_tpu_torch.parallel.sharded.decode_file_sharded`, whose rounds
+run :func:`fixpoint_lanes_end_state`).
 On the CPU both take the pipelines above, as :mod:`bjxa_tpu` does.  On a
 CUDA device a long stream takes neither: its payload goes to the card as
 the file holds it, and ONE launch of the stream kernel
@@ -167,6 +171,38 @@ def fixpoint_lanes_core(
         .reshape(K * Bc, C)[:b_total]
     )
     return frames, _end_from_frames(frames, b_total), valid, iters
+
+
+def fixpoint_lanes_end_state(
+    blocks_t: torch.Tensor,
+    state: torch.Tensor,
+    num_chunks: int,
+    channels: int,
+    *,
+    bits: int,
+):
+    """States-only twin of :func:`fixpoint_lanes_core`: returns just the
+    exact end state ``int32[C, 2]`` after the last block (no sample output
+    materialized).  The chunk grid must end exactly at the stream end
+    (callers pad with valid dummy blocks and account for them).
+
+    Every round, and the last run, is :func:`fused_decode_lanes` states-only
+    (the lanes kernel with ``WITH_OUTPUT=false`` on a CUDA device).
+    """
+    _Bc, _S, KC = blocks_t.shape
+    K, C = num_chunks, channels
+    if KC != K * C:
+        raise ValueError(f"lane count {KC} != {K} chunks x {C} channels")
+    anchor = state.to(torch.int32)
+
+    def run(states_flat, with_output):
+        return fused_decode_lanes(
+            blocks_t, states_flat, bits=bits, with_output=with_output
+        )
+
+    states, _ = fixpoint_states(run, anchor, K, C, max_iters=K)
+    _, end = run(states.reshape(K * C, 2), False)
+    return end.reshape(K, C, 2)[-1]
 
 
 def decode_fixpoint_lanes(
@@ -692,11 +728,24 @@ def decode_bytes_validity(
     return frames, valid[: fmt.blocks]
 
 
+def use_sp_mesh(mesh, sp_axis: str) -> bool:
+    """Whether ``mesh`` has a sequence-parallel axis ``sp_axis`` of more
+    than one device (a one-device axis takes the single-device path)."""
+    return (
+        mesh is not None
+        and sp_axis in getattr(mesh, "shape", {})
+        and mesh.shape[sp_axis] > 1
+    )
+
+
 def decode_bytes(
     payload: bytes | memoryview,
     fmt: XAFormat,
     *,
     device: torch.device | str,
+    mesh=None,
+    sp_axis: str = "sp",
+    sp_min_blocks: int = 2048,
 ) -> np.ndarray:
     """Decode one XA payload on ``device`` to interleaved PCM
     ``int16[samples, C]`` (a host numpy array).
@@ -705,7 +754,26 @@ def decode_bytes(
     the plain recurrence for short ones (:func:`decode_bytes_validity`).
     Raises BjxaProtocolError on an invalid profile factor anywhere in the
     stream.
+
+    With a ``mesh`` (:mod:`bjxa_tpu_torch.parallel.mesh`) whose ``sp_axis``
+    has more than one device and a stream of at least ``sp_min_blocks``
+    blocks, the block range is sequence-parallel sharded across the mesh's
+    devices instead (the boundary-state ring of
+    :func:`bjxa_tpu_torch.parallel.sharded.decode_file_sharded`), bit-exact
+    with the single-device paths.
     """
+    if use_sp_mesh(mesh, sp_axis) and fmt.blocks >= sp_min_blocks:
+        from bjxa_tpu_torch.parallel.sharded import decode_file_sharded
+
+        pcm, valid, _rounds = decode_file_sharded(
+            blocks_from_bytes(payload, fmt),
+            fmt.initial_state_array(),
+            bits=fmt.bits,
+            mesh=mesh,
+            axis=sp_axis,
+        )
+        check_valid(torch.from_numpy(valid[: fmt.blocks]), fmt.channels)
+        return pcm[: fmt.samples]
     frames, valid = decode_bytes_validity(payload, fmt, device=device)
     check_valid(valid, fmt.channels)
     return frames[: fmt.samples].cpu().numpy()
@@ -738,6 +806,8 @@ def iter_decode_segments(
     *,
     device: torch.device | str,
     segment_blocks: int = SEGMENT_BLOCKS,
+    mesh=None,
+    sp_axis: str = "sp",
 ):
     """Bounded-memory decode on ``device``: stream a file through it in
     fixed-size block segments, carrying the exact predictor end state
@@ -767,6 +837,13 @@ def iter_decode_segments(
     staged and decoded, and is waited for only just before it is yielded --
     one extra segment of host memory.  The carried state stays on the
     device.
+
+    With a ``mesh`` whose ``sp_axis`` has more than one device, every
+    segment's block range is sequence-parallel sharded across the mesh's
+    devices instead (:func:`bjxa_tpu_torch.parallel.sharded.
+    decode_file_sharded`): O(segment) host memory AND every device
+    decoding, still bit-identical.  That path returns each segment's PCM to
+    the host before the next one starts.
     """
     import dataclasses
 
@@ -816,9 +893,21 @@ def iter_decode_segments(
             data_len=use * fmt.block_size_xa,
             samples=use * BLOCK_SAMPLES,
         )
-        frames, _valid = _decode_payload(
-            memoryview(payload)[: sub.data_len], sub, state, device
-        )
+        if use_sp_mesh(mesh, sp_axis):
+            from bjxa_tpu_torch.parallel.sharded import decode_file_sharded
+
+            pcm, _valid, _rounds = decode_file_sharded(
+                blocks_from_bytes(memoryview(payload)[: sub.data_len], sub),
+                state,
+                bits=fmt.bits,
+                mesh=mesh,
+                axis=sp_axis,
+            )
+            frames = torch.from_numpy(pcm)
+        else:
+            frames, _valid = _decode_payload(
+                memoryview(payload)[: sub.data_len], sub, state, device
+            )
         # The carried state comes from the frames, after the last REAL
         # block: the pad blocks of a bucketed segment drag the decoder's own
         # end state away from it.  A slice on the device, no host sync.

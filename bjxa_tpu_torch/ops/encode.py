@@ -1,7 +1,6 @@
-"""XA encode pipelines on one device.
+"""XA encode pipelines.
 
-Port of the single-device subset of :mod:`bjxa_tpu.ops.encode`.  Two
-encoders:
+Port of :mod:`bjxa_tpu.ops.encode`.  Two encoders:
 
 * :func:`encode_truncate` — byte-compatible with the reference encoder,
   which performs *no* prediction: profile byte 0, keep the top ``bits`` of
@@ -19,7 +18,9 @@ that to ``K * channels`` lanes with the decoder's boundary-state fixed
 point, bit-identical to the sequential search; :func:`pick_encode_chunks`
 chooses K.  :func:`encode_stream_blocks` is what the whole-file entry
 points call; :func:`iter_encode_segments` streams a file of any size
-through the same encoders in fixed-size block segments;
+through the same encoders in fixed-size block segments (sharded over a
+``mesh``'s sequence-parallel axis when it has several devices, by
+:func:`bjxa_tpu_torch.parallel.sharded.encode_file_sharded`);
 :func:`encode_batch_blocks` is the corpus engine's batch of many streams.  Every function works on the device of the tensors it is
 given.
 """
@@ -245,6 +246,35 @@ def encode_batch_blocks(pcm: torch.Tensor, *, bits: int,
     return deflate_blocks(profiles, coded.transpose(1, 2), bits).reshape(-1)
 
 
+def _encode_segment(lanes: torch.Tensor, state: torch.Tensor, nblocks: int,
+                    *, bits: int, search: bool):
+    """One segment of :func:`iter_encode_segments` on ``lanes``' device:
+    ``lanes`` int16 ``[Bp, 32, C]`` (``nblocks`` real blocks, then the
+    bucket's zero blocks) from the entry ``state``.  Returns the packed
+    bytes of the real blocks and the exact state after the last of them."""
+    if search:
+        Kc = pick_encode_chunks(lanes.shape[0], lanes.shape[2])
+        if Kc > 1:
+            # chunk-parallel exact fixed point per segment: the search runs
+            # at Kc*channels lanes, bit-identical
+            profiles, coded, recon, _end, _r = encode_search_fixpoint(
+                lanes, state, bits=bits, num_chunks=Kc
+            )
+        else:
+            profiles, coded, recon, _end = encode_search(
+                lanes, state, bits=bits
+            )
+        # carried state = after the last REAL block of this segment (the
+        # bucket's pad blocks would corrupt the search's own end state)
+        state = torch.stack(
+            [recon[nblocks - 1, -1, :], recon[nblocks - 1, -2, :]], dim=-1,
+        ).to(torch.int32)
+    else:
+        profiles, coded = encode_truncate(lanes)
+    blocks = deflate_blocks(profiles, coded.transpose(1, 2), bits)
+    return blocks[:nblocks].cpu().numpy().tobytes(), state
+
+
 def iter_encode_segments(
     read,
     channels: int,
@@ -254,6 +284,8 @@ def iter_encode_segments(
     search: bool,
     device: torch.device | str,
     segment_blocks: int | None = None,
+    mesh=None,
+    sp_axis: str = "sp",
 ):
     """Bounded-memory encode on ``device``: stream PCM through it in
     fixed-size block segments, carrying the exact predictor/search state
@@ -272,15 +304,27 @@ def iter_encode_segments(
         interleaved PCM (a short result means the stream is truncated).
       samples: frames per channel the container header promises.
 
+    With a ``mesh`` whose ``sp_axis`` has more than one device and
+    ``search`` on, every segment's block range is sequence-parallel sharded
+    across the mesh's devices instead
+    (:func:`bjxa_tpu_torch.parallel.sharded.encode_file_sharded`): O(segment)
+    host memory AND every device searching, still bit-identical to the
+    sequential greedy search.
+
     Yields packed XA block bytes per segment.  On a truncated stream,
     yields the whole blocks that arrived (matching the streaming encoder's
     behavior), then raises :class:`EOFError`.
     """
-    from bjxa_tpu_torch.ops.decode import SEGMENT_BLOCKS, pad_bucket
+    from bjxa_tpu_torch.ops.decode import (
+        SEGMENT_BLOCKS,
+        pad_bucket,
+        use_sp_mesh,
+    )
     from bjxa_tpu_torch.ops.tables import BLOCK_SAMPLES
 
     if segment_blocks is None:
         segment_blocks = SEGMENT_BLOCKS
+    use_mesh = search and use_sp_mesh(mesh, sp_axis)
     device = torch.device(device)
     frame_bytes = 2 * channels
     state = torch.zeros((channels, 2), dtype=torch.int32, device=device)
@@ -303,32 +347,24 @@ def iter_encode_segments(
             arr[:frames_used] = np.frombuffer(
                 body, "<i2", count=frames_used * channels
             ).reshape(-1, channels)
-            lanes = torch.from_numpy(
-                arr.reshape(Bp, BLOCK_SAMPLES, channels)
-            ).to(device)
-            if search:
-                Kc = pick_encode_chunks(Bp, channels)
-                if Kc > 1:
-                    # chunk-parallel exact fixed point per segment: the
-                    # search runs at Kc*channels lanes, bit-identical
-                    profiles, coded, recon, _end, _r = encode_search_fixpoint(
-                        lanes, state, bits=bits, num_chunks=Kc
-                    )
-                else:
-                    profiles, coded, recon, _end = encode_search(
-                        lanes, state, bits=bits
-                    )
-                # carried state = after the last REAL block of this segment
-                # (the bucket's pad blocks would corrupt the search's own
-                # end state)
-                state = torch.stack(
-                    [recon[nblocks - 1, -1, :], recon[nblocks - 1, -2, :]],
-                    dim=-1,
-                ).to(torch.int32)
+            lanes = arr.reshape(Bp, BLOCK_SAMPLES, channels)
+            if use_mesh:
+                # the ring encode of this segment's block range
+                from bjxa_tpu_torch.parallel.sharded import (
+                    encode_file_sharded,
+                )
+
+                blocks, end, _rounds = encode_file_sharded(
+                    lanes, state, bits=bits, mesh=mesh, axis=sp_axis,
+                    b_total=nblocks,
+                )
+                out, state = blocks.tobytes(), torch.from_numpy(end)
             else:
-                profiles, coded = encode_truncate(lanes)
-            blocks = deflate_blocks(profiles, coded.transpose(1, 2), bits)
-            yield blocks[:nblocks].cpu().numpy().tobytes()
+                out, state = _encode_segment(
+                    torch.from_numpy(lanes).to(device), state, nblocks,
+                    bits=bits, search=search,
+                )
+            yield out
         if truncated:
             raise EOFError("truncated PCM stream")
         left -= want_frames

@@ -22,13 +22,22 @@ scales the reference's one-file-at-a-time CLI to directories of files:
   the batches' ``h2d``, ``compute`` and ``d2h`` between CUDA events.
 
 Output bytes, failure messages, manifest names, counters and the
-``.wav.tmp``/``.xa.tmp`` renames are those of :mod:`bjxa_tpu`.  Not ported
-yet: ``mesh=`` sharding and the ``jax.distributed`` process lookup
-(``process_index``/``process_count`` are explicit arguments).  A file above
+``.wav.tmp``/``.xa.tmp`` renames are those of :mod:`bjxa_tpu`.  A file above
 :func:`~bjxa_tpu_torch.ops.decode.segment_threshold` never enters the
 batcher: it streams through the segmented bounded-memory pipelines
 (:func:`~bjxa_tpu_torch.api.decode_xa_stream`,
 :func:`~bjxa_tpu_torch.api.encode_wav_stream`), one file at a time.
+
+With a ``mesh`` (:mod:`bjxa_tpu_torch.parallel.mesh`) each batch's lanes
+shard over its data-parallel axis instead
+(:func:`~bjxa_tpu_torch.parallel.sharded.decode_corpus_sharded_words`,
+:func:`~bjxa_tpu_torch.parallel.sharded.encode_corpus_sharded_flat`: the
+same kernels, one launch a device), and an oversized file's segments
+shard over the same devices as a sequence-parallel ring; that path times
+host spans only.  In a multi-process job
+(:mod:`bjxa_tpu_torch.parallel.distributed`) each process takes its
+round-robin share of the sorted file list; ``process_index`` and
+``process_count`` default to the live process group's.
 """
 
 from __future__ import annotations
@@ -172,6 +181,39 @@ def _add_device_ms(counters: Counters, marks) -> None:
         counters.add_ms(stage, a.elapsed_time(b))
 
 
+def _resolve_process(process_index, process_count):
+    """Fill unspecified process coordinates from the live process group."""
+    if process_index is None or process_count is None:
+        from bjxa_tpu_torch.parallel.distributed import process_info
+
+        auto_index, auto_count = process_info()
+        if process_index is None:
+            process_index = auto_index
+        if process_count is None:
+            process_count = auto_count
+    return process_index, process_count
+
+
+def _sp_remesh(mesh):
+    """The devices of a (dp) ``mesh`` rebuilt as a sequence-parallel ring,
+    or None when it has one device: an oversized file would otherwise
+    leave every device but one idle."""
+    if mesh is None:
+        return None
+    from bjxa_tpu_torch.parallel.mesh import make_mesh
+
+    devs = list(mesh.devices.flat)
+    if len(devs) < 2:
+        return None
+    return make_mesh(devs, dp=len(devs), sp=1, axis_names=("sp", "_"))
+
+
+def _finish_shards(readbacks) -> np.ndarray:
+    """Wait for every shard's readback (begun by :func:`start_readback`)
+    and return their bytes as one host vector, shard-major."""
+    return np.concatenate([finish_readback(*r) for r in readbacks])
+
+
 @dataclasses.dataclass
 class CorpusResult:
     converted: int
@@ -253,18 +295,22 @@ def decode_corpus(
     batch_files: int = 64,
     bucket_granularity: int = 256,
     manifest_path: str | pathlib.Path | None = None,
-    process_index: int = 0,
-    process_count: int = 1,
+    mesh=None,
+    process_index: int | None = None,
+    process_count: int | None = None,
     depth: int = 3,
 ) -> CorpusResult:
     """Decode every XA file in ``inputs`` to WAV files in ``out_dir`` on
-    ``device``.
+    ``device``, or on the devices of ``mesh``'s ``dp`` axis.
 
     ``inputs`` may be a directory (its ``*.xa``, sorted) or an iterable of
     paths; ``process_index``/``process_count`` pick this process's
-    round-robin share of that list.  ``depth`` bounds both the batches in
-    flight on the device and the queued host-side write backlog.
+    round-robin share of that list (default: the live process group's).
+    ``depth`` bounds both the batches in flight on the device and the
+    queued host-side write backlog.
     """
+    process_index, process_count = _resolve_process(process_index,
+                                                    process_count)
     device = torch.device(device)
     out_dir = pathlib.Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -307,6 +353,7 @@ def decode_corpus(
             groups.setdefault(key, []).append((path, fmt))
 
     # ---- oversized files: segmented bounded-memory decode ---------------
+    sp_mesh = _sp_remesh(mesh) if huge else None
     for path, fmt in huge:
         out_path = out_dir / (path.stem + ".wav")
         tmp = out_path.with_suffix(".wav.tmp")
@@ -314,7 +361,8 @@ def decode_corpus(
             with counters.span("segmented"):
                 with open(path, "rb") as fin, open(tmp, "wb") as fout:
                     fin.seek(XA_HEADER_SIZE)
-                    decode_xa_stream(fin, fout, fmt, device=device)
+                    decode_xa_stream(fin, fout, fmt, device=device,
+                                     mesh=sp_mesh)
                 tmp.replace(out_path)
         except (BjxaError, EOFError, OSError) as e:
             failed[str(path)] = str(e)
@@ -339,6 +387,24 @@ def decode_corpus(
             buf, valid, dead = stage_decode_batch(
                 chunk, bits, channels, Bs, L, failed, device
             )
+        if mesh is not None:
+            # the same staged words, profiles and states, each device's
+            # lanes to that device: one words-kernel launch a device, flat
+            # PCM back from each
+            from bjxa_tpu_torch.parallel.sharded import (
+                decode_corpus_sharded_words,
+            )
+
+            nw, npr, _nst = packed_layout(Bs, L, bits)
+            host = buf.numpy()
+            prof = host[nw : nw + npr].view(np.uint8)[: Bs * L]
+            with counters.span("launch"):
+                shards, reassemble = decode_corpus_sharded_words(
+                    prof.reshape(Bs, L), host[:nw].reshape(Bs, bits, L),
+                    host[nw + npr :].reshape(L, 2), bits=bits, mesh=mesh,
+                )
+                readback = ([start_readback(t) for t in shards], reassemble)
+            return channels, Bs, chunk, dead, buf, readback, [None], valid
         # one host->device copy, one kernel launch, one readback
         with counters.span("launch"):
             marks = [mark(device)]
@@ -387,10 +453,16 @@ def decode_corpus(
     def flush(pending):
         channels, nblocks, chunk, dead, _buf, readback, marks, valid = pending
         lanes_total = len(chunk) * channels
-        with counters.span("readback"):
-            pcm = finish_readback(*readback)  # flat int16
-        _add_device_ms(counters, marks + [readback[1]])
-        pcm = pcm.reshape(nblocks, BLOCK_SAMPLES, -1)[:, :, :lanes_total]
+        if mesh is not None:  # the shards of a mesh
+            readbacks, reassemble = readback
+            with counters.span("readback"):
+                pcm = reassemble(_finish_shards(readbacks))
+        else:
+            with counters.span("readback"):
+                pcm = finish_readback(*readback)  # flat int16
+            _add_device_ms(counters, marks + [readback[1]])
+            pcm = pcm.reshape(nblocks, BLOCK_SAMPLES, -1)
+        pcm = pcm[:, :, :lanes_total]
         # WAV serialization + disk writes run on the writer thread so the
         # next batch's transfer is not stalled behind file I/O.
         with counters.span("queue"):
@@ -420,12 +492,13 @@ def encode_corpus(
     batch_files: int = 64,
     bucket_granularity: int = 256,
     manifest_path: str | pathlib.Path | None = None,
-    process_index: int = 0,
-    process_count: int = 1,
+    mesh=None,
+    process_index: int | None = None,
+    process_count: int | None = None,
     depth: int = 3,
 ) -> CorpusResult:
     """Encode every WAV file in ``inputs`` to XA files in ``out_dir`` on
-    ``device``.
+    ``device``, or on the devices of ``mesh``'s ``dp`` axis.
 
     The encoder analog of :func:`decode_corpus`: files group by
     (channels, block-count bucket), each batch runs the 80-profile search
@@ -434,6 +507,8 @@ def encode_corpus(
     staging and writing.  Output bytes are identical to per-file
     :func:`bjxa_tpu_torch.api.encode_pcm`: lanes never interact.
     """
+    process_index, process_count = _resolve_process(process_index,
+                                                    process_count)
     device = torch.device(device)
     out_dir = pathlib.Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -528,6 +603,18 @@ def encode_corpus(
                     continue
                 ln = slice(i * channels, (i + 1) * channels)
                 frames[: pcm.shape[0], ln] = pcm
+        if mesh is not None:
+            from bjxa_tpu_torch.parallel.sharded import (
+                encode_corpus_sharded_flat,
+            )
+
+            with counters.span("launch"):
+                shards, reassemble = encode_corpus_sharded_flat(
+                    lanes.numpy(), np.zeros((L, 2), np.int32), bits=bits,
+                    search=search, mesh=mesh,
+                )
+                readback = ([start_readback(t) for t in shards], reassemble)
+            return channels, L, chunk, dead, lanes, readback, [None]
         # one upload, one search (or truncation) over the whole batch, one
         # readback of the flat blocks
         with counters.span("launch"):
@@ -579,10 +666,15 @@ def encode_corpus(
 
     def flush(pending):
         channels, L, chunk, dead, _lanes, readback, marks = pending
-        with counters.span("readback"):
-            blocks = finish_readback(*readback)
-        _add_device_ms(counters, marks + [readback[1]])
-        blocks = blocks.reshape(-1, L, bits * 4 + 1)
+        if mesh is not None:  # the shards of a mesh
+            readbacks, reassemble = readback
+            with counters.span("readback"):
+                blocks = reassemble(_finish_shards(readbacks))
+        else:
+            with counters.span("readback"):
+                blocks = finish_readback(*readback)
+            _add_device_ms(counters, marks + [readback[1]])
+            blocks = blocks.reshape(-1, L, bits * 4 + 1)
         with counters.span("queue"):
             writer.put(write_batch, channels, chunk, dead, blocks)
 

@@ -67,7 +67,20 @@ Phases, one line each (any failure raises and exits nonzero):
    library searches on the card (one kernel-7 launch a call, ~101 calls)
    and gives the native library's bytes and ``encode``'s; ``abi --install``
    and a C client built against it through pkg-config decode the
-   saturation vector, and the installed C CLI the 5-minute file;
+   saturation vector, and the installed C CLI the 5-minute file; the
+   multi-device layer on meshes that name the card more than once (their
+   shards run one after another there): the sequence-parallel ring decode
+   of the 5-minute stream on 1 and 4 entries and through
+   ``decode_bytes(mesh=)`` (the lanes kernel in every round) gives
+   ``xa_to_wav``'s PCM, with the ring's rounds equal to the CPU's on a
+   cut of it, the ring encode of the 5-minute WAV on 4 entries (kernel 7
+   in every round) ``wav_to_xa``'s bytes, the corpus engine on 2 entries
+   the outputs and manifests of the runs without a mesh, and the transcode
+   step on a (dp, cp) mesh the CPU's blocks and MSE, each path's launches
+   counted from 0; ``decode``, ``encode`` and ``corpus --devices 1`` give
+   the bytes of no flag, ``--devices 2`` exits 1 with the JAX package's
+   text, and a two-process ``corpus`` (gloo on 127.0.0.1) the one-process
+   outputs and totals;
 5. timings on the card (CUDA events, median of repeats after warm-up), the
    per-stage split of each main path, the short-stream path (the launch
    floor of an empty kernel, the samples entry and the fused kernel in
@@ -91,7 +104,11 @@ Phases, one line each (any failure raises and exits nonzero):
    scripts as child processes, their JSON lines echoed; ``decode
    --streaming`` of the 5-minute file, the streaming Encoder's search a
    block on the card (kernel 7 at two lanes) against the native host
-   search, and ``benchmarks/abi.py``.
+   search, and ``benchmarks/abi.py``; the ring decode on 1 and 4 entries
+   and the ring encode on 4 (seconds, rounds, launches), the corpus
+   decode and encode on 2 entries against none, and
+   ``benchmarks/multihost.py`` (1 and 2 processes) and
+   ``benchmarks/mesh_flat.py`` at a small size.
 
 The line before the last is the kernel summary as JSON (each kernel's time
 beside its plain version's and the least time the card could take for the
@@ -302,6 +319,26 @@ STREAMING_RUNS = 3
 # A mono 8-bit file of 1,200 blocks cut mid-block, after 1,000, for the
 # streaming CLI's EOF case: (bits, channels, samples, kept bytes).
 STREAM_CUT = (8, 1, 32 * 1200, 32 + 1000 * 33 + 17)
+
+# The multi-device layer on one card: meshes that name the card more than
+# once, whose shards run one after another there.  The ring decode of the
+# 5-minute stream on these entry counts (K = 16 chunks a shard), its rounds
+# checked against the CPU on a cut of SP_CUT_BLOCKS blocks; the ring encode
+# of the 5-minute WAV on SP_ENCODE_ENTRIES; the corpus engine's decode and
+# encode on DP_ENTRIES; the transcode step over a (dp, cp) = (2, 2) mesh of
+# TRANSCODE = (files, channels, blocks) 6-bit streams, against the CPU.
+SP_MESHES = (1, 4)
+SP_CUT_BLOCKS = 4096
+SP_ENCODE_ENTRIES = 4
+DP_ENTRIES = 2
+TRANSCODE = (4, 2, 256)
+# The two scaling scripts in phase 5, at a small size.
+MULTIHOST_ENV = {"BENCH_FILES": 8, "BENCH_SAMPLES": 66150,
+                 "BENCH_BATCH_FILES": 4, "BENCH_PROCS": "1,2"}
+MESH_FLAT_ENV = {"BENCH_REPS": 3}
+# Said beside every time of a mesh that repeats the card.
+SERIAL_NOTE = repr("shards of a repeated-device mesh run one after another"
+                   " on one card")
 
 # The card's peaks for the bounds.  Memory: the H100 SXM's published 3.35
 # TB/s.  Integer operations: half of its published 67 TFLOP/s float32 rate,
@@ -2828,6 +2865,406 @@ def streaming_timings(torch, dev, gpu: str, st: dict) -> dict:
     return {"ms": k_ms, "plain_ms": p_ms}
 
 
+def zero_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from bjxa_tpu_torch.ops import (cuda_decode, cuda_decode_words,
+                                    cuda_encode, cuda_filter)
+
+    for mod in (cuda_decode, cuda_decode_words, cuda_encode, cuda_filter):
+        mod.LAUNCHES = 0
+    cuda_decode.STREAM_LAUNCHES = cuda_filter.SHORT_LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from bjxa_tpu_torch.ops import (cuda_decode, cuda_decode_words,
+                                    cuda_encode, cuda_filter)
+
+    return {"decode_lanes": cuda_decode.LAUNCHES,
+            "decode_stream": cuda_decode.STREAM_LAUNCHES,
+            "decode_short": cuda_filter.SHORT_LAUNCHES,
+            "filter_lanes": cuda_filter.LAUNCHES,
+            "decode_words": cuda_decode_words.LAUNCHES,
+            "encode_search": cuda_encode.LAUNCHES}
+
+
+def counted(fn, *want):
+    """``fn()`` with every launch count set to 0 just before it, and the
+    counts just after: each kernel of ``want`` launched, no other.
+    Returns ``(result, host seconds, counts)``."""
+    zero_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    seconds = time.perf_counter() - t0
+    got = read_launches()
+    wrong = {k: v for k, v in got.items() if (v > 0) != (k in want)}
+    if wrong:
+        raise AssertionError(f"launched {got}, want {want} and nothing else")
+    return out, seconds, got
+
+
+def mesh_of(card, n: int, axis_names=("sp", "_")):
+    from bjxa_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh([card] * n, dp=n, sp=1, axis_names=axis_names)
+
+
+def sp_main_path(torch, card, big: bytes, big_wav: bytes, wav: bytes,
+                 want_xa: bytes) -> dict:
+    """Phase 4 for the sequence-parallel ring: the 5-minute stream decoded
+    by ``decode_file_sharded`` on each mesh of ``SP_MESHES`` (the lanes
+    kernel states-only in every round, with output in the final pass) and
+    by ``decode_bytes(mesh=)``, each PCM ``xa_to_wav``'s; the ring's rounds
+    on a cut equal to the CPU's; the 5-minute WAV search-encoded by
+    ``encode_file_sharded`` (kernel 7 in every round), its bytes
+    ``wav_to_xa``'s.  Returns what phase 5 and the summary need."""
+    from bjxa_tpu_torch import load_pcm, parse_riff_header, parse_xa_header
+    from bjxa_tpu_torch.ops.decode import blocks_from_bytes, decode_bytes
+    from bjxa_tpu_torch.parallel.sharded import (decode_file_sharded,
+                                                 encode_file_sharded)
+
+    fmt = parse_xa_header(big)
+    blocks = blocks_from_bytes(memoryview(big)[32:], fmt)
+    state = fmt.initial_state_array()
+    out = {"decode": {}, "blocks": blocks, "state": state, "fmt": fmt}
+    for n in SP_MESHES:
+        mesh = mesh_of(card, n)
+        (pcm, valid, rounds), secs, got = counted(
+            lambda: decode_file_sharded(blocks, state, bits=fmt.bits,
+                                        mesh=mesh), "decode_lanes")
+        if pcm[: fmt.samples].tobytes() != big_wav[44:] or not valid.all():
+            raise AssertionError(f"sp decode on {n} entries != xa_to_wav")
+        Bp = -(-fmt.blocks // (16 * n)) * 16 * n
+        out["decode"][n] = {"rounds": rounds, "launches": got["decode_lanes"],
+                            "mesh": mesh}
+        phase(4, "sp_decode_equals_xa_to_wav", entries=n, blocks=fmt.blocks,
+              K=16, Bc=Bp // (16 * n), rounds=rounds,
+              decode_lanes=got["decode_lanes"], seconds=f"{secs:.3f}")
+
+    # the rounds (and PCM) of the same ring on the CPU, on a cut
+    n = max(SP_MESHES)
+    cut = np.ascontiguousarray(blocks[:, :SP_CUT_BLOCKS])
+    t0 = time.perf_counter()
+    card_cut = decode_file_sharded(cut, state, bits=fmt.bits,
+                                   mesh=mesh_of(card, n))
+    cpu_cut = decode_file_sharded(cut, state, bits=fmt.bits,
+                                  mesh=mesh_of(torch.device("cpu"), n))
+    if (card_cut[2] != cpu_cut[2] or not np.array_equal(card_cut[0],
+                                                        cpu_cut[0])
+            or not np.array_equal(card_cut[1], cpu_cut[1])):
+        raise AssertionError(f"sp decode cut: card {card_cut[2]} rounds,"
+                             f" CPU {cpu_cut[2]}, PCM equal"
+                             f" {np.array_equal(card_cut[0], cpu_cut[0])}")
+    phase(4, "sp_decode_cut_equals_cpu", entries=n, blocks=SP_CUT_BLOCKS,
+          rounds_card=card_cut[2], rounds_cpu=cpu_cut[2],
+          seconds=f"{time.perf_counter() - t0:.3f}")
+
+    # the user's entry: decode_bytes with an sp mesh
+    pcm, secs, got = counted(
+        lambda: decode_bytes(memoryview(big)[32:32 + fmt.data_len], fmt,
+                             device=card, mesh=out["decode"][n]["mesh"]),
+        "decode_lanes")
+    if pcm.tobytes() != big_wav[44:]:
+        raise AssertionError("decode_bytes(mesh=) != xa_to_wav")
+    out["decode_bytes_launches"] = got["decode_lanes"]
+    phase(4, "sp_decode_bytes_mesh", entries=n, decode_lanes=got["decode_lanes"],
+          seconds=f"{secs:.3f}")
+
+    # the ring encode of the 5-minute WAV
+    rf = parse_riff_header(wav)
+    C = rf.channels
+    nblocks = -(-rf.samples // 32)
+    padded = np.zeros((nblocks * 32, C), np.int16)
+    padded[: rf.samples] = load_pcm(wav[44:44 + rf.data_len_pcm], C)
+    lanes = padded.reshape(nblocks, 32, C)
+    emesh = mesh_of(card, SP_ENCODE_ENTRIES)
+    (xa, end, rounds), secs, got = counted(
+        lambda: encode_file_sharded(lanes, np.zeros((C, 2), np.int32),
+                                    bits=6, mesh=emesh), "encode_search")
+    if xa.tobytes() != want_xa[32:]:
+        raise AssertionError("sp encode != wav_to_xa")
+    grid = 16 * SP_ENCODE_ENTRIES
+    out["encode"] = {"lanes": lanes, "mesh": emesh, "rounds": rounds,
+                     "launches": got["encode_search"], "first_s": secs}
+    phase(4, "sp_encode_equals_wav_to_xa", entries=SP_ENCODE_ENTRIES,
+          blocks=nblocks, K=16, Bc=-(-nblocks // grid), rounds=rounds,
+          encode_search=got["encode_search"], seconds=f"{secs:.3f}",
+          ms_per_launch=f"{secs * 1e3 / got['encode_search']:.3f}",
+          note=SERIAL_NOTE)
+    return out
+
+
+def _manifest(d: pathlib.Path) -> list:
+    """A corpus run's manifest records: input, output name, samples."""
+    recs = []
+    for m in sorted(d.glob(".bjxa-*manifest-*.jsonl")):
+        for line in m.read_text().splitlines():
+            r = json.loads(line)
+            recs.append((r["key"], pathlib.Path(r["out"]).name, r["samples"]))
+    return sorted(recs)
+
+
+def dp_main_path(torch, card, corp_src: pathlib.Path,
+                 corp_out: pathlib.Path, enc_src: pathlib.Path,
+                 enc_out: pathlib.Path, tmp: pathlib.Path) -> dict:
+    """Phase 4 for the data-parallel corpus: ``decode_corpus`` and
+    ``encode_corpus`` with a mesh of ``DP_ENTRIES`` entries (the words
+    kernel, kernel 7, one launch a shard and batch), outputs and manifests
+    those of the runs without a mesh.  Returns the launches."""
+    from bjxa_tpu_torch import decode_corpus, encode_corpus
+
+    mesh = mesh_of(card, DP_ENTRIES, ("dp", "sp"))
+    n_files, _ch, _bits, _nb, batch = CORPUS
+    res, secs, got = counted(
+        lambda: decode_corpus(corp_src, tmp / "mesh_wav", device=card,
+                              batch_files=batch, mesh=mesh), "decode_words")
+    batches = -(-n_files // batch)
+    if (res.converted != n_files or res.failed
+            or got["decode_words"] != batches * DP_ENTRIES):
+        raise AssertionError(f"dp decode corpus: {res.converted}"
+                             f" {res.failed} {got}")
+    for p in corp_out.glob("*.wav"):
+        if (tmp / "mesh_wav" / p.name).read_bytes() != p.read_bytes():
+            raise AssertionError(f"dp decode corpus {p.name} != no mesh")
+    if _manifest(tmp / "mesh_wav") != _manifest(corp_out):
+        raise AssertionError("dp decode corpus: manifest != no mesh")
+    phase(4, "dp_decode_corpus_equals_no_mesh", entries=DP_ENTRIES,
+          files=n_files, batches=batches, decode_words=got["decode_words"],
+          seconds=f"{secs:.3f}", note=SERIAL_NOTE)
+    out = {"decode_words": got["decode_words"]}
+    n_enc = ENCODE_CORPUS[0]
+    res, secs, got = counted(
+        lambda: encode_corpus(enc_src, tmp / "mesh_xa", device=card,
+                              mesh=mesh), "encode_search")
+    if (res.converted != n_enc or res.failed
+            or got["encode_search"] != DP_ENTRIES):
+        raise AssertionError(f"dp encode corpus: {res.converted}"
+                             f" {res.failed} {got}")
+    for p in enc_out.glob("*.xa"):
+        if (tmp / "mesh_xa" / p.name).read_bytes() != p.read_bytes():
+            raise AssertionError(f"dp encode corpus {p.name} != no mesh")
+    if _manifest(tmp / "mesh_xa") != _manifest(enc_out):
+        raise AssertionError("dp encode corpus: manifest != no mesh")
+    phase(4, "dp_encode_corpus_equals_no_mesh", entries=DP_ENTRIES,
+          files=n_enc, encode_search=got["encode_search"],
+          seconds=f"{secs:.3f}", note=SERIAL_NOTE)
+    out["encode_search"] = got["encode_search"]
+    return dict(out, mesh=mesh)
+
+
+def transcode_main_path(torch, card, rng) -> dict:
+    """Phase 4 for the transcode step over a (dp, cp) mesh of the card:
+    the filter kernel's samples entry and kernel 7 on every shard; the
+    re-encoded blocks and the MSE of the plain step on the CPU."""
+    from bjxa_tpu_torch.parallel.mesh import make_mesh
+    from bjxa_tpu_torch.parallel.pipeline import (corpus_shardings,
+                                                  transcode_step)
+
+    N, C, B = TRANSCODE
+    blocks = rng.integers(0, 256, size=(N, C, B, 25), dtype=np.uint8)
+    blocks[..., 0] = (rng.integers(0, 5, size=(N, C, B)) << 4
+                      | rng.integers(0, 13, size=(N, C, B)))
+    states = rng.integers(-2000, 2000, size=(N, C, 2)).astype(np.int32)
+    mesh = make_mesh([card] * 4, dp=2, sp=2, axis_names=("dp", "cp"))
+    (xa, mse), secs, got = counted(
+        lambda: transcode_step(blocks, states, bits=6,
+                               sharding=corpus_shardings(mesh)),
+        "filter_lanes", "encode_search")
+    t0 = time.perf_counter()
+    cpu_xa, cpu_mse = transcode_step(blocks, states, bits=6)
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(xa, cpu_xa) or abs(mse - cpu_mse) > 1e-6 * cpu_mse:
+        raise AssertionError(f"transcode step: card mse {mse}, CPU {cpu_mse},"
+                             f" blocks equal {np.array_equal(xa, cpu_xa)}")
+    phase(4, "transcode_step_equals_cpu", mesh="dp=2,cp=2", files=N,
+          channels=C, blocks=B, mse=f"{float(mse):.6f}",
+          mse_cpu=f"{float(cpu_mse):.6f}", filter_lanes=got["filter_lanes"],
+          encode_search=got["encode_search"], seconds=f"{secs:.3f}",
+          cpu_plain_s=f"{cpu_s:.3f}")
+    return got
+
+
+def run_children(jobs, timeout: int = 600) -> list:
+    """``python -m bjxa_tpu_torch <args>`` for each ``(args, env)`` of
+    ``jobs``, all started together; ``[(code, stdout, stderr)]`` in order,
+    stderr without torch.distributed's own log lines.  None outlives
+    ``timeout``."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "bjxa_tpu_torch", *map(str, args)], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for args, env in jobs]
+    out = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=timeout)
+            se = "".join(line for line in se.splitlines(keepends=True)
+                         if "[c10d]" not in line)
+            out.append((p.returncode, so, se))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def mesh_cli_checks(tmp: pathlib.Path, big: bytes, big_wav: bytes, wav: bytes,
+                    want_xa: bytes, corp_src: pathlib.Path,
+                    corp_out: pathlib.Path) -> dict:
+    """Phase 4 for the CLI's device and process options on a one-card
+    host: ``decode``, ``encode`` and ``corpus --devices 1`` give the bytes
+    of the runs without it, ``--devices 2`` exits 1 with the JAX package's
+    text, and a two-process ``corpus`` (gloo on 127.0.0.1) gives the
+    one-process outputs, process 0 the one-process totals.  Returns the
+    two-process run's seconds."""
+    import socket
+
+    (tmp / "big.xa").write_bytes(big)
+    (tmp / "big.wav").write_bytes(wav)
+    n_files, _ch, _bits, _nb, batch = CORPUS
+    refusal = "--devices 2 out of range (1..1 available)"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = child_env(None)
+    jobs = [
+        (["decode", "--devices", 1, tmp / "big.xa", tmp / "d1.wav"], env),
+        (["encode", "--devices", 1, tmp / "big.wav", tmp / "d1.xa"], env),
+        (["corpus", "--devices", 1, "--batch-files", batch, corp_src,
+          tmp / "d1_corpus"], env),
+        (["decode", "--devices", 2, tmp / "big.xa", tmp / "d2.wav"], env),
+        (["encode", "--devices", 2, tmp / "big.wav", tmp / "d2.xa"], env),
+        (["corpus", "--devices", 2, corp_src, tmp / "d2_corpus"], env),
+    ]
+    t0 = time.perf_counter()
+    dec1, enc1, cor1, dec2, enc2, cor2 = run_children(jobs)
+    if dec1[0] or dec1[2] or (tmp / "d1.wav").read_bytes() != big_wav:
+        raise AssertionError(f"decode --devices 1: {dec1[0]} {dec1[2]}")
+    if enc1[0] or enc1[2] or (tmp / "d1.xa").read_bytes() != want_xa:
+        raise AssertionError(f"encode --devices 1: {enc1[0]} {enc1[2]}")
+    summary = f"converted {n_files} skipped 0 failed 0 samples "
+    if cor1[0] or cor1[2] or not cor1[1].startswith(summary):
+        raise AssertionError(f"corpus --devices 1: {cor1}")
+    for p in corp_out.glob("*.wav"):
+        if (tmp / "d1_corpus" / p.name).read_bytes() != p.read_bytes():
+            raise AssertionError(f"corpus --devices 1: {p.name} differs")
+    for name, r in (("decode", dec2), ("encode", enc2)):
+        if r != (1, "", f"bjxa: {refusal}\n"):
+            raise AssertionError(f"{name} --devices 2: {r}")
+    if (cor2[0], cor2[1]) != (1, "") or not cor2[2].startswith(
+            f"bjxa: {refusal}\nUsage: "):
+        raise AssertionError(f"corpus --devices 2: {cor2}")
+    phase(4, "cli_devices", devices_1="bytes of no flag",
+          devices_2=repr(f"bjxa: {refusal}"),
+          seconds=f"{time.perf_counter() - t0:.3f}")
+
+    t0 = time.perf_counter()
+    two = run_children([
+        (["corpus", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+          2, "--process-id", i, "--batch-files", batch, corp_src,
+          tmp / "mp_corpus"], env) for i in range(2)])
+    secs = time.perf_counter() - t0
+    if [r[0] for r in two] != [0, 0] or two[0][2] or two[1][2]:
+        raise AssertionError(f"two-process corpus: {two}")
+    if two[0][1] != cor1[1] or two[1][1] != "":
+        raise AssertionError(f"two-process corpus said {two[0][1]!r},"
+                             f" {two[1][1]!r}; one process {cor1[1]!r}")
+    got = {p.name for p in (tmp / "mp_corpus").glob("*.wav")}
+    if got != {p.name for p in corp_out.glob("*.wav")}:
+        raise AssertionError("two-process corpus: files differ")
+    for p in corp_out.glob("*.wav"):
+        if (tmp / "mp_corpus" / p.name).read_bytes() != p.read_bytes():
+            raise AssertionError(f"two-process corpus: {p.name} differs")
+    phase(4, "cli_corpus_two_processes", processes=2, files=n_files,
+          summary=repr(two[0][1].strip()), equals_one_process=True,
+          seconds=f"{secs:.3f}")
+    return {"two_process_s": secs}
+
+
+def mesh_timings(torch, card, gpu: str, sp: dict, dp: dict,
+                 corp_src: pathlib.Path, enc_src: pathlib.Path,
+                 tmp: pathlib.Path) -> dict:
+    """Phase 5 for the multi-device layer: the ring decode on each mesh of
+    ``SP_MESHES`` and the ring encode (host clock, synchronous), the corpus
+    decode and encode with and without a mesh, and the two scaling scripts
+    (``benchmarks/multihost.py``, ``benchmarks/mesh_flat.py``) at a small
+    size.  Each line says that the shards serialise on one card."""
+    from bjxa_tpu_torch import decode_corpus, encode_corpus
+    from bjxa_tpu_torch.parallel.sharded import (decode_file_sharded,
+                                                 encode_file_sharded)
+
+    fmt, blocks, state = sp["fmt"], sp["blocks"], sp["state"]
+    out = {}
+    for n, d in sp["decode"].items():
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _pcm, _v, rounds = decode_file_sharded(blocks, state, bits=fmt.bits,
+                                                   mesh=d["mesh"])
+            runs.append(time.perf_counter() - t0)
+        out[f"sp_decode_{n}_s"] = statistics.median(runs)
+        phase(5, "time_sp_decode", gpu=repr(gpu), entries=n,
+              blocks=fmt.blocks, rounds=rounds, decode_lanes=d["launches"],
+              seconds=f"{statistics.median(runs):.6f}",
+              runs=[f"{r:.6f}" for r in runs], note=SERIAL_NOTE)
+    e = sp["encode"]
+    t0 = time.perf_counter()
+    _xa, _end, rounds = encode_file_sharded(
+        e["lanes"], np.zeros((e["lanes"].shape[2], 2), np.int32), bits=6,
+        mesh=e["mesh"])
+    secs = time.perf_counter() - t0
+    out["sp_encode_s"] = secs
+    phase(5, "time_sp_encode", gpu=repr(gpu), entries=SP_ENCODE_ENTRIES,
+          blocks=e["lanes"].shape[0], rounds=rounds,
+          encode_search=e["launches"], seconds=f"{secs:.6f}",
+          first_run_s=f"{e['first_s']:.6f}",
+          ms_per_launch=f"{secs * 1e3 / e['launches']:.3f}", note=SERIAL_NOTE)
+
+    n_files, _ch, _bits, _nb, batch = CORPUS
+    for what, fn, src, n in (("decode", decode_corpus, corp_src, n_files),
+                             ("encode", encode_corpus, enc_src,
+                              ENCODE_CORPUS[0])):
+        kw = {"batch_files": batch} if what == "decode" else {}
+        secs = {}
+        for label, mesh in (("none", None), (f"{DP_ENTRIES}", dp["mesh"])):
+            dst = tmp / f"time_{what}_{label}"
+            t0 = time.perf_counter()
+            res = fn(src, dst, device=card, mesh=mesh, **kw)
+            secs[label] = time.perf_counter() - t0
+            shutil.rmtree(dst)
+            if res.converted != n:
+                raise AssertionError(f"timed {what} corpus: {res.failed}")
+        out[f"dp_{what}_s"] = secs
+        phase(5, f"time_dp_{what}_corpus", gpu=repr(gpu), files=n,
+              entries=DP_ENTRIES, seconds=f"{secs[str(DP_ENTRIES)]:.6f}",
+              no_mesh_s=f"{secs['none']:.6f}",
+              files_per_s=f"{n / secs[str(DP_ENTRIES)]:.3f}",
+              no_mesh_files_per_s=f"{n / secs['none']:.3f}",
+              note=SERIAL_NOTE)
+
+    for module, env, metric in (
+        ("multihost", MULTIHOST_ENV, "multihost_corpus_files_per_s"),
+        ("mesh_flat", MESH_FLAT_ENV, "mesh_batch_seconds"),
+    ):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", f"bjxa_tpu_torch.benchmarks.{module}"],
+            cwd=ROOT, env=child_env(None, **env), capture_output=True,
+            text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"{module}: exit {res.returncode}"
+                                 f" {res.stderr[-2000:]}")
+        (rec,) = [json.loads(line) for line in res.stdout.splitlines()]
+        if rec["metric"] != metric or rec["device"] != gpu:
+            raise AssertionError(f"{module} printed {rec}")
+        out[module] = rec
+        print(f"phase 5 {module}: {json.dumps(rec)}", flush=True)
+        phase(5, "child_script", module=f"bjxa_tpu_torch.benchmarks.{module}",
+              lines=1, seconds=f"{time.perf_counter() - t0:.3f}",
+              note=repr("processes and mesh entries share one card"))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3060,6 +3497,16 @@ def main() -> int:
     worst["encode_search"] = max(worst["encode_search"], enc_corp["err"])
     meas_launches = measurement_main_path(torch)
     codec_st = streaming_main_path(images, ref, bad, bad_wav, enc)
+    # the multi-device layer on meshes that repeat the card, each path
+    # counted from 0; then the CLI's device and process options
+    card = torch.device("cuda", torch.cuda.current_device())
+    sp_st = sp_main_path(torch, card, big, ref["stereo6_5min"], enc["big"],
+                         enc["ref"])
+    dp_st = dp_main_path(torch, card, corp["src"], ctmp / "corpus_wav",
+                         enc_corp["src"], ctmp / "enc_xa", ctmp)
+    trans = transcode_main_path(torch, card, np.random.default_rng(SEED + 23))
+    mesh_cli_checks(ctmp, big, ref["stereo6_5min"], enc["big"], enc["ref"],
+                    corp["src"], ctmp / "corpus_wav")
 
     # ---- phase 5: timings on the card ---------------------------------------
     ms = {}
@@ -3127,6 +3574,8 @@ def main() -> int:
     enc_ms = encode_timings(torch, dev, gpu, enc)
     words_ms, words_corpus = corpus_timings(torch, dev, gpu, corp, enc_corp,
                                             ctmp)
+    mesh_ms = mesh_timings(torch, card, gpu, sp_st, dp_st, corp["src"],
+                           enc_corp["src"], ctmp)
     ctmp_dir.cleanup()
     meas = measurement_timings(torch, dev, gpu)
     # the words kernel at the headline against the load/store bound measured
@@ -3194,13 +3643,19 @@ def main() -> int:
         entry("decode_lanes", "bjxa_tpu/ops/pallas_decode.py:83",
               {"decode_fixpoint_lanes": fixpoint_lanes_launches,
                "decode_arrays_fixpoint": wrap["decode_arrays_fixpoint"],
-               "benchmarks": meas_launches["decode_lanes"]},
+               "benchmarks": meas_launches["decode_lanes"],
+               **{f"decode_file_sharded_{n}": d["launches"]
+                  for n, d in sp_st["decode"].items()},
+               "decode_bytes_mesh": sp_st["decode_bytes_launches"]},
               timed("decode_lanes", ms[("decode_lanes", True)]),
+              sp_decode_s={str(n): mesh_ms[f"sp_decode_{n}_s"]
+                           for n in SP_MESHES},
               also_replaces="bjxa_tpu/ops/pallas_decode.py:141"),
         entry("filter_lanes", "bjxa_tpu/ops/pallas_filter.py:36",
               {"short_decode_old_route":
                short_ms["routes"]["old"]["launches"]["filter_lanes"],
-               "decode_batch": wrap["decode_batch"]},
+               "decode_batch": wrap["decode_batch"],
+               "transcode_step": trans["filter_lanes"]},
               timed("filter_lanes", (
                   short_ms[("filter_lanes", True)]["ms"],
                   short_ms[("filter_lanes", True)]["plain_ms"])),
@@ -3232,13 +3687,18 @@ def main() -> int:
                "encode_wav_stream": seg_launches["encode_search"],
                "encode_corpus": enc_corp["launches"],
                "Encoder.encode": codec_st["launches"],
-               "bench": meas_launches["encode_search"]},
+               "bench": meas_launches["encode_search"],
+               "encode_file_sharded": sp_st["encode"]["launches"],
+               "encode_corpus_mesh": dp_st["encode_search"],
+               "transcode_step": trans["encode_search"]},
               timed("encode_search", enc_ms),
+              sp_encode_s=mesh_ms["sp_encode_s"],
               encoder_piece_ms=codec_ms["ms"],
               encoder_piece_plain_ms=codec_ms["plain_ms"]),
         entry("decode_words", "bjxa_tpu/ops/pallas_decode.py:149",
               {"decode_corpus": corp["launches"],
-               "bench": meas_launches["decode_words"]},
+               "bench": meas_launches["decode_words"],
+               "decode_corpus_mesh": dp_st["decode_words"]},
               timed("decode_words", words_ms[True]),
               states_only_ms=words_ms[False][0],
               measured_bound_ms=measured_8, corpus_batch=words_corpus,

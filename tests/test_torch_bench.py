@@ -413,6 +413,32 @@ def test_bench_module_prints_three_metrics_headline_last():
         "decode_throughput"]
 
 
+def test_mesh_flat_bench(tiny_env, monkeypatch, capsys):
+    """The words and lanes paths of a one-device mesh, equal PCM, timed."""
+    from bjxa_tpu_torch.benchmarks import mesh_flat
+
+    monkeypatch.setenv("BENCH_BLOCKS", "40")
+    monkeypatch.setenv("BENCH_REPS", "2")
+    rec = mesh_flat.main()
+    assert json.loads(capsys.readouterr().out) == rec
+    assert rec["metric"] == "mesh_batch_seconds" and rec["device"] == "cpu"
+    assert rec["shape"] == "[40,33,8]" and len(rec["words_runs_s"]) == 2
+
+
+def test_multihost_bench(tiny_env, monkeypatch, capsys):
+    """Two gloo processes run the CLI corpus job; the totals of process 0's
+    summary cover every file."""
+    from bjxa_tpu_torch.benchmarks import multihost
+
+    for name, value in {"BENCH_FILES": 3, "BENCH_SAMPLES": 700,
+                        "BENCH_BATCH_FILES": 2, "BENCH_PROCS": "2"}.items():
+        monkeypatch.setenv(name, str(value))
+    rec = multihost.main()
+    assert json.loads(capsys.readouterr().out) == rec
+    assert rec["summary"] == "converted 3 skipped 0 failed 0 samples 4200"
+    assert set(rec["processes"]) == {"2"} and rec["device"] == "cpu"
+
+
 def test_bench_module_refuses_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -426,9 +452,11 @@ def test_measurement_modules_import_no_jax():
         "import sys\n"
         "import bjxa_tpu_torch.bench\n"
         "from bjxa_tpu_torch.benchmarks import (ablate, corpus, encode,"
-        " load_variants, roofline_bound, search_unroll, segmented,"
-        " store_variants)\n"
+        " load_variants, mesh_flat, multihost, roofline_bound,"
+        " search_unroll, segmented, store_variants)\n"
         "from bjxa_tpu_torch.tools import encode_pack_falsify\n"
+        "from bjxa_tpu_torch.parallel import (distributed, mesh, pipeline,"
+        " sharded)\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'bjxa_tpu')]\n"
         "assert not bad, bad\n"

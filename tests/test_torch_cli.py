@@ -7,7 +7,9 @@ Streams stay under 2048 blocks, so the JAX CLI takes its single-device
 path on the test harness's virtual CPU mesh.
 """
 
+import functools
 import io
+import json
 import os
 import pathlib
 import struct
@@ -134,30 +136,44 @@ def test_decode_missing_input_matches(cpu_platform, tmp_path):
     ids=["too_many", "unknown", "none", "help"],
 )
 def test_usage_paths_match(cpu_platform, args):
-    """Same exit code and error label; the usage text itself lists only
-    the actions and options this port has."""
+    """Same exit code and error label; the usage text that follows lists
+    the JAX package's actions and options, with this port's device
+    notes."""
     (tc, tout, terr), (jc, jout, jerr) = both(args)
     assert tc == jc
     assert terr.split("\n")[0] == jerr.split("\n")[0]
     assert tout[:6] == jout[:6]
     usage = tout.decode() if args == ["help"] else terr
-    assert ("decode [--streaming] [--segment-blocks <n>] [<xa file>"
-            " [<wav file>]]" in usage)
-    assert "encode [--bits <4|6|8>] [--truncate]" in usage
-    assert ("corpus [--batch-files <n>] [--depth <k>] [--manifest <path>]"
+    assert ("decode [--streaming] [--devices <n>] [--segment-blocks <n>]\n"
+            "         [<xa file> [<wav file>]]" in usage)
+    assert ("encode [--bits <4|6|8>] [--truncate] [--devices <n>]\n"
+            "         [--segment-blocks <n>] [<wav file> [<xa file>]]"
             in usage)
+    assert ("corpus [--batch-files <n>] [--depth <k>] [--manifest <path>]\n"
+            "         [--devices <n>]" in usage)
     assert "  abi --install <prefix>\n" in usage
-    assert "--devices" not in usage
+    assert ("Multi-host: --coordinator <host:port> --num-processes\n"
+            "    <n> --process-id <i> (or BJXA_COORDINATOR /" in usage)
+
+
+@pytest.fixture
+def eight_cpus(monkeypatch):
+    """Eight CPU entries as the local devices, as the JAX package's eight
+    virtual CPU devices of the test harness."""
+    monkeypatch.setattr(tcli, "_local_devices",
+                        lambda: [torch.device("cpu")] * 8)
 
 
 @pytest.mark.parametrize("flag", ["--streaming", "--devices",
                                   "--segment-blocks"])
-def test_unported_decode_flags_fail(cpu_platform, monkeypatch, tmp_path,
-                                    flag):
-    """``--devices`` is not ported and says so; ``--streaming`` and
-    ``--segment-blocks`` are, and answer as bjxa_tpu's CLI does: a missing
-    input, and the bytes and stderr of a valid, a cut and an
-    invalid-profile stream, equal to the whole-file decode's."""
+def test_unported_decode_flags_fail(cpu_platform, eight_cpus, monkeypatch,
+                                   tmp_path, flag):
+    """Every decode option answers as bjxa_tpu's CLI does.  ``--streaming``
+    and ``--segment-blocks``: a missing input, and the bytes and stderr of
+    a valid, a cut and an invalid-profile stream, equal to the whole-file
+    decode's.  ``--devices`` (eight CPU entries against the JAX package's
+    eight devices): 1 and 8 decode the same bytes, 0 is refused with the
+    usage, 9 and a bad ``BJXA_DEVICES`` exit 1 with one line."""
     if flag == "--streaming":
         got, want = both(["decode", flag, "2", str(tmp_path / "x.xa")])
         assert got == want and got[0] == 1 and got[2].startswith("Error: ")
@@ -167,11 +183,25 @@ def test_unported_decode_flags_fail(cpu_platform, monkeypatch, tmp_path,
             assert got == run_cli(tcli.main, ["decode"], data()), name
         return
     if flag == "--devices":
-        code, out, err = run_cli(tcli.main, ["decode", flag, "2", "x.xa"])
-        assert code == 1 and out == b""
-        assert err.startswith(f"bjxa: {flag} is not yet ported\n")
+        for n in ("1", "8"):
+            for name in ("stereo6", "invalid_profile", "truncated"):
+                got, want = both(["decode", flag, n, "-", "-"],
+                                 STREAMS[name]())
+                assert got == want, (n, name)
+                assert got == run_cli(tcli.main, ["decode"],
+                                      STREAMS[name]())
+        got, want = both(["decode", flag, "0", "x.xa"])
+        assert got[0] == want[0] == 1 and got[1] == want[1] == b""
+        assert got[2].split("\n")[0] == want[2].split("\n")[0] == (
+            "bjxa: Invalid --devices")
+        got, want = both(["decode", flag, "9", "-", "-"], STREAMS["stereo6"]())
+        assert got == want == (
+            1, b"", "bjxa: --devices 9 out of range (1..8 available)\n")
+        monkeypatch.setenv("BJXA_DEVICES", "x")
+        got, want = both(["decode", "-", "-"], STREAMS["stereo6"]())
+        assert got == want == (1, b"", "bjxa: Invalid BJXA_DEVICES 'x'\n")
         return
-    monkeypatch.setenv("BJXA_DEVICES", "1")  # read by the JAX CLI alone
+    monkeypatch.setenv("BJXA_DEVICES", "1")  # one device in both CLIs
     got, want = both(["decode", flag, "2", str(tmp_path / "x.xa")])
     assert got == want and got[0] == 1 and got[2].startswith("Error: ")
     got, want = both(["decode", flag, "none", "x.xa"])
@@ -279,24 +309,142 @@ def test_abi_install_refused_without_native(cpu_platform, monkeypatch,
     assert not (tmp_path / "p").exists()
 
 
+FRESH_JAX_INIT = """
+import json, os, sys
+from bjxa_tpu.parallel import distributed
+out = []
+for coordinator, count, pid, env in json.loads(sys.argv[1]):
+    for var in ("BJXA_COORDINATOR", "BJXA_NUM_PROCESSES", "BJXA_PROCESS_ID"):
+        os.environ.pop(var, None)
+    os.environ.update(env)
+    try:
+        out.append(distributed.initialize(coordinator, count, pid))
+    except ValueError as e:
+        out.append(str(e))
+print(json.dumps(out))
+"""
+
+
+@functools.cache
+def fresh_jax_initialize(cases: tuple) -> list:
+    """What :func:`bjxa_tpu.parallel.distributed.initialize` answers to each
+    ``(coordinator, count, pid, env)`` case, its ``ValueError`` message or
+    its result, in ONE fresh JAX process: past its own checks it calls
+    ``jax.distributed.initialize``, which refuses every call once a JAX
+    backend is up, as it is in a test process.  No case may succeed: a
+    successful one would wait for its peers."""
+    res = subprocess.run(
+        [sys.executable, "-c", FRESH_JAX_INIT,
+         json.dumps([list(c[:3]) + [dict(c[3])] for c in cases])],
+        env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+    )
+    assert res.returncode == 0, res.stderr[-2000:]
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+#: Corpus options of both CLIs and the cases each answers: its arguments
+#: (the input and output directories follow them, except where they end in
+#: an option that wants a value), the first stderr line of both tools
+#: (None: a run that converts), and where the JAX package's line comes from
+#: ``jax.distributed.initialize``, the arguments it gets (its CLI is then
+#: asked in a fresh process, :func:`fresh_jax_initialize`).
+CORPUS_FLAG_CASES = {
+    "--devices": [(["--devices", "1"], None, None),
+                  (["--devices", "0"], "bjxa: Invalid --devices", None),
+                  (["--devices", "9"],
+                   "bjxa: --devices 9 out of range (1..8 available)", None)],
+    "--coordinator": [
+        (["--coordinator"], "bjxa: Missing coordinator address", None),
+        (["--coordinator", "127.0.0.1:1"],
+         "bjxa: Number of processes must be defined.",
+         ("127.0.0.1:1", None, None, ()))],
+    "--num-processes": [
+        (["--num-processes", "0"], "bjxa: Invalid --num-processes", None),
+        (["--num-processes", "2"],
+         "bjxa: --process-id and --num-processes must be given together",
+         None),
+        (["--num-processes", "1", "--process-id", "0"],
+         "bjxa: coordinator_address should be defined.", (None, 1, 0, ()))],
+    "--process-id": [
+        (["--process-id", "x"], "bjxa: Invalid --process-id", None),
+        (["--coordinator", "127.0.0.1:1", "--num-processes", "2",
+          "--process-id", "3"], "bjxa: process id out of range", None)],
+}
+
+
+def _corpus_src(tmp_path):
+    src = tmp_path / "src"
+    src.mkdir(exist_ok=True)
+    for i, (bits, ch, blocks) in enumerate([(4, 1, 30), (6, 2, 41)]):
+        (src / f"f{i}.xa").write_bytes(make_xa(bits, ch, blocks, seed=40 + i))
+    return src
+
+
 @pytest.mark.parametrize("flag", ["--devices", "--coordinator",
                                   "--num-processes", "--process-id"])
-def test_unported_corpus_flags_fail(cpu_platform, tmp_path, flag):
-    code, out, err = run_cli(tcli.main, ["corpus", flag, "1", str(tmp_path),
-                                         str(tmp_path / "out")])
-    assert code == 1 and out == b""
-    assert err.startswith(f"bjxa: {flag} is not yet ported\n")
-    assert not (tmp_path / "out").exists()
+def test_unported_corpus_flags_fail(cpu_platform, eight_cpus, tmp_path,
+                                    flag):
+    """Every corpus option of the device mesh and the multi-process job
+    answers as bjxa_tpu's CLI does (eight CPU entries against its eight
+    devices): the same exit code, stdout and error line, and no output
+    directory, for each refusal; ``--devices 1`` converts the same
+    bytes."""
+    src = _corpus_src(tmp_path)
+    fresh = fresh_jax_initialize(tuple(
+        c[2] for c in CORPUS_FLAG_CASES[flag] if c[2] is not None))
+    for k, (args, line, init) in enumerate(CORPUS_FLAG_CASES[flag]):
+        outs = (tmp_path / f"t{k}", tmp_path / f"j{k}")
+        dirs = [[], []] if args == [flag] else [[str(src), str(o)]
+                                                for o in outs]
+        got = run_cli(tcli.main, ["corpus", *args, *dirs[0]])
+        if init is not None:
+            assert got[2].split("\n")[0] == f"bjxa: {fresh.pop(0)}"
+            want = (1, b"", got[2])
+        else:
+            want = run_cli(jcli.main, ["corpus", *args, *dirs[1]])
+        assert got[0] == want[0] and got[1] == want[1], args
+        assert got[2].split("\n")[0] == want[2].split("\n")[0], args
+        if line is None:
+            assert got == want and got[0] == 0 and got[1].startswith(
+                b"converted 2 skipped 0 failed 0 samples ")
+            assert _files(outs[0], "*.wav") == _files(outs[1], "*.wav")
+            continue
+        assert got[0] == 1 and got[1] == b"" and got[2].startswith(
+            line + "\n"), args
+        assert not outs[0].exists()
 
 
 @pytest.mark.parametrize("var", ["BJXA_DEVICES", "BJXA_COORDINATOR",
                                  "BJXA_NUM_PROCESSES", "BJXA_PROCESS_ID"])
-def test_unported_corpus_env_fails(cpu_platform, monkeypatch, tmp_path, var):
-    monkeypatch.setenv(var, "1")
-    code, out, err = run_cli(tcli.main, ["corpus", str(tmp_path),
-                                         str(tmp_path / "out")])
-    assert code == 1 and out == b""
-    assert err.startswith(f"bjxa: {var} is not yet ported\n")
+def test_unported_corpus_env_fails(cpu_platform, eight_cpus, monkeypatch,
+                                   tmp_path, var):
+    """Each variable of the mesh and the multi-process job, read as
+    bjxa_tpu's CLI reads it: the same refusal, exit code and stdout
+    (``BJXA_COORDINATOR`` alone reaches ``jax.distributed.initialize``,
+    asked in a fresh process)."""
+    value, line = {
+        "BJXA_DEVICES": ("9", "bjxa: BJXA_DEVICES 9 out of range"
+                              " (1..8 available)"),
+        "BJXA_COORDINATOR": ("127.0.0.1:1",
+                             "bjxa: Number of processes must be defined."),
+        "BJXA_NUM_PROCESSES": ("2", "bjxa: --process-id and"
+                                    " --num-processes must be given"
+                                    " together"),
+        "BJXA_PROCESS_ID": ("1", "bjxa: --process-id and --num-processes"
+                                 " must be given together"),
+    }[var]
+    monkeypatch.setenv(var, value)
+    src = _corpus_src(tmp_path)
+    got = run_cli(tcli.main, ["corpus", str(src), str(tmp_path / "t")])
+    if var == "BJXA_COORDINATOR":
+        (msg,) = fresh_jax_initialize(((None, None, None, ((var, value),)),))
+        want = (1, b"", f"bjxa: {msg}\n")
+    else:
+        want = run_cli(jcli.main, ["corpus", str(src), str(tmp_path / "j")])
+    assert got[0] == want[0] == 1 and got[1] == want[1] == b""
+    assert got[2].split("\n")[0] == want[2].split("\n")[0] == line
+    assert not (tmp_path / "t").exists()
 
 
 @pytest.fixture

@@ -130,17 +130,33 @@ def test_encode_unwritable_output_matches(cpu_platform, tmp_path):
 @pytest.mark.parametrize("flag", ["--devices", "--segment-blocks"])
 def test_unported_encode_flags_fail(cpu_platform, monkeypatch, tmp_path,
                                     flag):
-    """``--devices`` is not ported and says so; ``--segment-blocks`` is, and
-    answers as bjxa_tpu's CLI does: a missing input, and a segmented
-    encode's bytes after ``--bits``."""
-    if flag != "--segment-blocks":
-        for args in (["encode", flag, "2", "x.wav"],
-                     ["encode", "--bits", "4", flag, "2"]):
-            code, out, err = run_cli(tcli.main, args)
-            assert code == 1 and out == b""
-            assert err.startswith(f"bjxa: {flag} is not yet ported\n")
+    """Both encode options answer as bjxa_tpu's CLI does.
+    ``--segment-blocks``: a missing input, and a segmented encode's bytes
+    after ``--bits``.  ``--devices`` (eight CPU entries against the JAX
+    package's eight devices): 1 and 2 encode the same bytes, 0 is refused
+    with the usage, 9 and a bad ``BJXA_DEVICES`` exit 1 with one line."""
+    if flag == "--devices":
+        monkeypatch.setattr(tcli, "_local_devices",
+                            lambda: [torch.device("cpu")] * 8)
+        wav = make_wav(2, 70 * 32 + 5, seed=41)
+        for args in (["encode", flag, "1"], ["encode", "--bits", "4", flag,
+                                             "2"]):
+            got, want = both(args, wav)
+            assert got == want and got[0] == 0, args
+            assert got == run_cli(tcli.main, [a for a in args if a not in
+                                              (flag, "1", "2")], wav)
+        got, want = both(["encode", flag, "0", "x.wav"])
+        assert got[0] == want[0] == 1 and got[1] == want[1] == b""
+        assert got[2].split("\n")[0] == want[2].split("\n")[0] == (
+            "bjxa: Invalid --devices")
+        got, want = both(["encode", "--truncate", flag, "9"], wav)
+        assert got == want == (
+            1, b"", "bjxa: --devices 9 out of range (1..8 available)\n")
+        monkeypatch.setenv("BJXA_DEVICES", "x")
+        got, want = both(["encode"], wav)
+        assert got == want == (1, b"", "bjxa: Invalid BJXA_DEVICES 'x'\n")
         return
-    monkeypatch.setenv("BJXA_DEVICES", "1")  # read by the JAX CLI alone
+    monkeypatch.setenv("BJXA_DEVICES", "1")  # one device in both CLIs
     got, want = both(["encode", flag, "2", str(tmp_path / "x.wav")])
     assert got == want and got[0] == 1 and got[2].startswith("Error: ")
     wav = make_wav(2, 70 * 32 + 5, seed=40)

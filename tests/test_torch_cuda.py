@@ -1182,3 +1182,98 @@ def test_decode_batch_card_matches_cpu(dev):
     assert cuda_filter.LAUNCHES - before == 1
     for g, w in zip(got, decode_batch(b, s, bits=8)):
         assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# the scaling layer on meshes that name the card more than once
+# ---------------------------------------------------------------------------
+
+
+def _mesh(dev, n, axis_names):
+    from bjxa_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh([torch.device(dev.type, dev.index or 0)] * n, dp=n,
+                     sp=1, axis_names=axis_names)
+
+
+@pytest.mark.parametrize("bits,channels,blocks", [(6, 2, 3001), (4, 1, 517)])
+def test_sp_ring_decode_card_matches_cpu(dev, bits, channels, blocks):
+    """The ring decode on ``[cuda:0] * 4``: the lanes kernel states-only in
+    every round, with output in the final pass; PCM, validity and rounds
+    equal the same ring on the CPU and the single-device decode."""
+    from bjxa_tpu_torch.parallel.sharded import decode_file_sharded
+
+    rng = np.random.default_rng(blocks)
+    blocks_c = rng.integers(0, 256, size=(channels, blocks, 4 * bits + 1),
+                            dtype=np.uint8)
+    blocks_c[:, :, 0] = (rng.integers(0, 5, size=(channels, blocks)) << 4
+                         | rng.integers(0, 13, size=(channels, blocks)))
+    blocks_c[0, blocks // 3, 0] = 0x70
+    state = rng.integers(-900, 900, size=(channels, 2)).astype(np.int32)
+    before = cuda_decode.LAUNCHES
+    got = decode_file_sharded(blocks_c, state, bits=bits,
+                              mesh=_mesh(dev, 4, ("sp", "_")), axis="sp")
+    launches = cuda_decode.LAUNCHES - before
+    cpu = decode_file_sharded(blocks_c, state, bits=bits,
+                              mesh=_mesh(torch.device("cpu"), 4, ("sp", "_")),
+                              axis="sp")
+    np.testing.assert_array_equal(got[0], cpu[0])
+    np.testing.assert_array_equal(got[1], cpu[1])
+    assert got[2] == cpu[2] and not got[1].all()
+    assert launches > 4 * (got[2] + 1)  # every round, every shard, a launch
+    from bjxa_tpu_torch.ops.decode import decode_arrays
+
+    one, _end, valid = decode_arrays(
+        torch.from_numpy(blocks_c), torch.from_numpy(state), bits=bits)
+    np.testing.assert_array_equal(got[0], one.numpy())
+    np.testing.assert_array_equal(got[1], valid.numpy())
+
+
+def test_sp_ring_encode_card_matches_single_device(dev):
+    """The ring encode on ``[cuda:0] * 4`` (kernel 7 in every round): the
+    bytes and end state of the single-device search on the card."""
+    from bjxa_tpu_torch.ops.encode import encode_search
+    from bjxa_tpu_torch.ops.deflate import deflate_blocks
+    from bjxa_tpu_torch.parallel.sharded import encode_file_sharded
+
+    rng = np.random.default_rng(9)
+    B, C = 700, 2
+    t = np.arange(B * 32)[:, None]
+    pcm = (9000 * np.sin(t / (23.0 + 5 * np.arange(C)))
+           + rng.normal(0, 900, (B * 32, C))).astype(np.int16)
+    pcm = pcm.reshape(B, 32, C)
+    before = cuda_encode.LAUNCHES
+    blocks, end, rounds = encode_file_sharded(
+        pcm, np.zeros((C, 2), np.int32), bits=6,
+        mesh=_mesh(dev, 4, ("sp", "_")), b_total=B - 3)
+    assert cuda_encode.LAUNCHES - before > 4 * rounds
+    prof, coded, recon, _ = encode_search(
+        torch.from_numpy(pcm[: B - 3]).to(dev),
+        torch.zeros((C, 2), dtype=torch.int32, device=dev), bits=6)
+    want = deflate_blocks(prof, coded.transpose(1, 2), 6).cpu().numpy()
+    np.testing.assert_array_equal(blocks, want)
+    r = recon[-1].cpu().numpy()
+    np.testing.assert_array_equal(end, np.stack([r[-1], r[-2]], -1))
+
+
+def test_dp_words_decode_card_matches_single_device(dev):
+    """The words decode sharded over ``[cuda:0] * 4``: one words-kernel
+    launch a shard, reassembled to the single-device batch decode."""
+    from bjxa_tpu_torch.ops.decode import decode_batch_words
+    from bjxa_tpu_torch.parallel.sharded import (
+        decode_corpus_sharded_words,
+        host_flat,
+    )
+
+    blocks_t, state = _lanes(8, 300, 37, seed=3, dev=torch.device("cpu"))
+    prof, words = words_from_blocks_host(blocks_t.numpy(), 8)
+    before = cuda_decode_words.LAUNCHES
+    shards, reassemble = decode_corpus_sharded_words(
+        prof, words, state.numpy(), bits=8, mesh=_mesh(dev, 4, ("dp", "sp")))
+    assert cuda_decode_words.LAUNCHES - before == 4
+    assert all(s.device.type == "cuda" for s in shards)
+    pcm, _end, _valid = decode_batch_words(
+        torch.from_numpy(prof).to(dev), torch.from_numpy(words).to(dev),
+        state.to(dev), bits=8)
+    np.testing.assert_array_equal(reassemble(host_flat(shards)),
+                                  pcm.cpu().numpy())
