@@ -3,8 +3,9 @@
 ``csrc/encode_search.cu`` runs 16 warps of a CTA in 16 instruction streams
 (one template per range), so the size of its sample loop decides whether
 the streams stay in the instruction cache.  This script builds the
-production source with that loop unrolled 1 (production), 2, 4 and 32
-times, each by its own ``nvcc`` (all at once, flags of ``ops/_build.py``),
+production source with that loop (in the search body it includes,
+``csrc/encode_block.cuh``) unrolled 1 (production), 2, 4 and 32 times,
+each by its own ``nvcc`` (all at once, flags of ``ops/_build.py``),
 holds every variant equal to the production kernel on all four outputs at
 every bit depth, then times them in turns (each in order, then in reverse)
 at the main path's round shape (B=101, L=8192), ``bench.py``'s (B=32,
@@ -44,11 +45,11 @@ LOOP = ("#pragma unroll 1\n"
 
 
 def variant_source(unroll: int) -> str:
-    """``csrc/encode_search.cu`` with its sample loop unrolled ``unroll``
+    """``csrc/encode_block.cuh`` with its sample loop unrolled ``unroll``
     times (32: fully)."""
-    src = (_build.CSRC / "encode_search.cu").read_text()
+    src = (_build.CSRC / "encode_block.cuh").read_text()
     if src.count(LOOP) != 1:
-        raise RuntimeError("encode_search.cu: the sample loop has moved")
+        raise RuntimeError("encode_block.cuh: the sample loop has moved")
     pragma = "#pragma unroll" if unroll == 32 else f"#pragma unroll {unroll}"
     return src.replace(LOOP, LOOP.replace("#pragma unroll 1", pragma))
 
@@ -59,8 +60,13 @@ def build_variants() -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for u in UNROLLS:
-        src = out_dir / f"encode_search_u{u}.cu"
-        src.write_text(variant_source(u))
+        # the kernel beside its variant body: a quoted include looks in
+        # the including file's directory first
+        src_dir = out_dir / f"u{u}"
+        src_dir.mkdir(exist_ok=True)
+        (src_dir / "encode_block.cuh").write_text(variant_source(u))
+        src = src_dir / "encode_search.cu"
+        src.write_text((_build.CSRC / "encode_search.cu").read_text())
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}",
                "-shared", "-o", str(out_dir / f"libsearch_u{u}.so"),
                str(src)]

@@ -22,7 +22,14 @@ its public entry points, on seeded random inputs with valid profiles:
   corpus batch (B=20,736, L=32) the words kernel at 4, 6 and 8 bits,
   ``w32+i16`` and ``u8+i16``; the load/store bound (kernel 9) at the
   headline at 4, 6 and 8 bits; the search kernel (kernel 7) at B=101,
-  L=8,192, 6-bit; eager windows;
+  L=8,192, at B=32, L=4,096 (``bench.py``'s) and at the shapes of the
+  search's fixed point, 6-bit; eager windows;
+* where the checkout has it, the search's fixed point in one launch
+  (``cuda_encode.encode_search_fixpoint_lanes``) at a corpus batch (B =
+  13,824, L = 32), a streaming ``Encoder`` call (B = 4,096, L = 2) and the
+  5-minute stream (B = 413,438, L = 2), with its rounds, on seeded audio-like
+  PCM (two sines a lane and noise), beside the serial kernel at the first
+  two;
 * ``xa_to_wav`` of a 23-block stereo 8-bit stream, host clock,
   synchronised, median of 21, and the device kernels and copies of one
   such decode from ``torch.profiler``;
@@ -31,10 +38,12 @@ its public entry points, on seeded random inputs with valid profiles:
   probe's shape, eagerly and in a CUDA graph.
 
 Beside each kernel's time it prints the SHA-1 of its outputs, so two
-checkouts' runs show whether any byte moved, and ptxas' registers of each
+checkouts' runs show whether any byte moved, ptxas' registers of each
 instantiation of the words kernel (``words_registers``, from the build's
-log).  The words layout is packed from the lanes by the checkout's own
-``ops.decode.pack_words_from_lanes``.  Eager windows use the checkout's
+log), and the SHA-1 of each kernel function's SASS (``sass_sha1``, from
+``cuobjdump -sass`` of the built library), so two checkouts' runs show
+which kernels compiled to other code.  The words layout is packed from
+the lanes by the checkout's own ``ops.decode.pack_words_from_lanes``.  Eager windows use the checkout's
 own ``benchmarks/_common.time_ms``.  Needs the card.  Prints one JSON line
 with the card's name and power limit.  Env: ``BENCH_REPS`` (7).
 """
@@ -159,6 +168,42 @@ def words_registers(log: str) -> dict:
     return out
 
 
+def sass_digests(library: Path) -> dict | str:
+    """``{kernel function: SHA-1 of its SASS}`` of a built library, from
+    ``cuobjdump -sass``; the anonymous namespaces' per-file tags are left
+    out of the names, so two checkouts' names match."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = Path(home) / "bin" / "cuobjdump"
+    if not tool.exists():
+        return "not measured (no cuobjdump)"
+    text = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, name, body = {}, None, []
+    for line in text.splitlines() + ["Function : "]:
+        if "Function : " in line:
+            if name is not None:
+                out[name] = hashlib.sha1("\n".join(body).encode()).hexdigest()
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "anon",
+                          line.split("Function : ", 1)[1].strip())
+            body = []
+        elif name is not None:
+            body.append(line.strip())
+    out.pop("", None)
+    return out
+
+
+def audio_pcm(rng, B: int, L: int) -> torch.Tensor:
+    """Seeded audio-like ``int16[B, 32, L]``: two sines of random pitch a
+    lane and noise (``chip_smoke.synth_wav``'s signal)."""
+    t = np.arange(B * 32, dtype=np.float64)[:, None] * (2 * np.pi / 44100)
+    f = rng.uniform(80.0, 2000.0, size=(2, L))
+    sig = 9000 * np.sin(f[0] * t) + 4000 * np.sin(f[1] * t)
+    sig += rng.normal(0.0, 400.0, size=(B * 32, L))
+    return torch.from_numpy(
+        np.clip(sig, -32768, 32767).astype(np.int16).reshape(B, 32, L))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=HERE)
@@ -187,7 +232,8 @@ def main(argv=None) -> int:
     out = {"metric": "short_stream", "root": str(root),
            "build_s": time.perf_counter() - t0,
            "words_registers": words_registers(
-               _build.library_path().with_suffix(".log").read_text())}
+               _build.library_path().with_suffix(".log").read_text()),
+           "sass_sha1": sass_digests(_build.library_path())}
     rng = np.random.default_rng(20261017)
 
     for dtype in (torch.int32, torch.int16):
@@ -282,6 +328,25 @@ def main(argv=None) -> int:
     zeros = torch.zeros((8192, 2), dtype=torch.int32, device=dev)
     timed("search", lambda: cuda_encode.encode_search_lanes(pcm, zeros,
                                                             bits=6), inner=3)
+    pcm = torch.from_numpy(rng.integers(
+        -(2**15), 2**15, size=(32, 32, 4096)).astype(np.int16)).to(dev)
+    zeros = torch.zeros((4096, 2), dtype=torch.int32, device=dev)
+    timed("search_bench", lambda: cuda_encode.encode_search_lanes(
+        pcm, zeros, bits=6), inner=4)
+    fixpoint = getattr(cuda_encode, "encode_search_fixpoint_lanes", None)
+    for label, (B, L, K) in (("corpus_batch", (13_824, 32, 256)),
+                             ("encoder_call", (4096, 2, 256)),
+                             ("5min", (413_438, 2, 4096))):
+        pcm = audio_pcm(rng, B, L).to(dev)
+        zeros = torch.zeros((L, 2), dtype=torch.int32, device=dev)
+        if label != "5min":
+            timed(f"search_{label}", lambda: cuda_encode.encode_search_lanes(
+                pcm, zeros, bits=6), inner=1)
+        if fixpoint is not None:
+            timed(f"fixpoint_{label}", lambda: fixpoint(
+                pcm, zeros, bits=6, num_chunks=K), inner=1)
+            out[f"fixpoint_{label}_rounds"] = int(fixpoint(
+                pcm, zeros, bits=6, num_chunks=K)[4].item())
 
     xa = short_xa(pkg, rng)
     want = pkg.xa_to_wav(xa, device="cpu")

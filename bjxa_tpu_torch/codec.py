@@ -17,8 +17,10 @@ The per-block work runs on the host: through the native library
 path (the filter state is two ints per channel; launching a device kernel
 per 32-sample block would be all launch latency).  The one exception is
 the profile-search encode without the native library: it runs the search
-(:func:`bjxa_tpu_torch.ops.encode.encode_search`) on the encoder's device,
-kernel 7 on the CUDA card or its plain version on the CPU.
+(:func:`bjxa_tpu_torch.ops.encode.encode_search_auto`) on the encoder's
+device, one launch a call on the CUDA card (the fixed-point kernel, or
+kernel 7 for a call of fewer than 64 blocks) or the plain versions on the
+CPU.
 """
 
 from __future__ import annotations
@@ -432,17 +434,19 @@ class Encoder:
 
     def _encode_search_device(self, padded: np.ndarray, nblocks: int) -> bytes:
         """Profile-search encode of the buffered blocks on the encoder's
-        device (the route when the native library is off): one search
-        launch over the call's blocks, from the carried state."""
+        device (the route when the native library is off): one launch over
+        the call's blocks from the carried state, of the fixed-point kernel
+        where the call is long enough to be cut into chunks
+        (:func:`~bjxa_tpu_torch.ops.encode.encode_search_auto`)."""
         from bjxa_tpu_torch.ops.deflate import deflate_blocks
-        from bjxa_tpu_torch.ops.encode import encode_search
+        from bjxa_tpu_torch.ops.encode import encode_search_auto
 
         fmt = self._fmt
         device = self._search_device()
         lanes = torch.from_numpy(
             padded.reshape(nblocks, BLOCK_SAMPLES, fmt.channels)
         ).to(device)
-        profiles, coded, _recon, end = encode_search(
+        profiles, coded, _recon, end = encode_search_auto(
             lanes, torch.from_numpy(self._state).to(device), bits=fmt.bits
         )
         blocks = deflate_blocks(profiles, coded.transpose(1, 2), fmt.bits)

@@ -1,8 +1,10 @@
-// The exact chunk fixed point of the chunked decoders, solved inside ONE
+// The exact chunk fixed point of the chunked kernels, solved inside ONE
 // launch, and the host side of the cooperative launch.  One schedule, two
 // scopes: the grid of a cooperative launch (decode_words.cu and its
 // ablations decode_variants.cu and loadstore_bound.cu, decode_stream.cu) or
-// one CTA (filter_lanes.cu's short-stream decode).
+// one CTA (filter_lanes.cu's short-stream decode); and the same schedule
+// with a CTA, not a thread, per work item (chunk_fixpoint_tiles, the search
+// encode's encode_fixpoint.cu).
 //
 // Each of `lanes` lanes has B blocks, cut into K chunks of Bc blocks (the
 // last one may be short, none is empty); a work item is (chunk k, lane l) at
@@ -169,6 +171,103 @@ __device__ __forceinline__ void chunk_fixpoint(
                                  Bc, run);
 }
 
+// Work items a tile of chunk_fixpoint_tiles holds.
+constexpr int kTileItems = 32;
+
+// The schedule of chunk_fixpoint over the grid of a cooperative launch with
+// a CTA, not a thread, per work item: tile j holds items j*32 .. j*32 + 31
+// (the last tile may be ragged), tiles are strided over the persistent
+// grid, and all threads of a CTA call run(Output<W>{}, i, p0, p1) for their
+// tile together, so run may hold CTA barriers.  i = j*32 + threadIdx.x % 32
+// is the thread's item (K*lanes or more in a ragged tile's dead slots);
+// threads 0-31 hand the item's start in (p0, p1) and take its end state
+// back there, the others' (p0, p1) are zeros and ignored.  run writes the
+// output and `end` itself: this form solves the starts and counts the
+// rounds (scratch as in GridScope, the count to scratch[2]).  Every tile
+// runs to the same end in every round, so every thread reaches every
+// grid.sync().  A run of a CTA-wide search leaves no register to spare, so
+// nothing of this loop stays in one across run: the CTA's tile index and
+// the solved starts' parity live in shared memory (read back after run's
+// barriers), and indices are 32-bit (4*K*lanes + 4 < 2^31, the caller's
+// check; a 64-bit division is a call).
+template <bool WITH_OUTPUT, class Run>
+__device__ __forceinline__ void chunk_fixpoint_tiles(
+    const int32_t* __restrict__ state, int32_t* scratch, int lanes, int K,
+    Run run) {
+  __shared__ int tile;  // the tile this CTA runs
+  __shared__ int solved;  // the parity of the solved starts
+  const GridScope grid{scratch};
+  const int items = K * lanes;
+  const int tiles = (items + kTileItems - 1) / kTileItems;
+  // every thread has read `tile` before thread 0 moves it on
+  auto next_tile = [&](int j) {
+    __syncthreads();
+    if (threadIdx.x == 0) tile = j;
+    __syncthreads();
+  };
+  int done = 0;  // rounds run
+  if (K > 1) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      grid.ctrl()[0] = 0;
+      grid.ctrl()[1] = 0;
+    }
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < items;
+         i += gridDim.x * blockDim.x) {
+      const bool anchor = i < lanes;
+      grid.starts()[2 * i] = anchor ? state[2 * i] : 0;
+      grid.starts()[2 * i + 1] = anchor ? state[2 * i + 1] : 0;
+    }
+    grid.sync();
+    for (bool moved = true; moved && done < K;) {
+      for (next_tile(blockIdx.x); tile < tiles;
+           next_tile(tile + gridDim.x)) {
+        const int parity = done & 1;
+        const int i = tile * kTileItems + threadIdx.x % kTileItems;
+        const bool mine = threadIdx.x < kTileItems && i < items;
+        const int32_t* from = grid.starts() + parity * 2 * items;
+        int32_t p0 = mine ? grid.load(from + 2 * i) : 0;
+        int32_t p1 = mine ? grid.load(from + 2 * i + 1) : 0;
+        if (mine && i < lanes) {  // chunk 0 stays anchored
+          int32_t* to = grid.starts() + (parity ^ 1) * 2 * items;
+          to[2 * i] = p0;
+          to[2 * i + 1] = p1;
+        }
+        run(Output<false>{}, i, p0, p1);
+        // the next chunk's item
+        const int n = tile * kTileItems + threadIdx.x % kTileItems + lanes;
+        if (threadIdx.x < kTileItems && n < items) {
+          const int32_t* was = grid.starts() + parity * 2 * items;
+          int32_t* to = grid.starts() + (parity ^ 1) * 2 * items;
+          if (grid.load(was + 2 * n) != p0 ||
+              grid.load(was + 2 * n + 1) != p1) {
+            grid.ctrl()[parity] = done + 1;
+          }
+          to[2 * n] = p0;
+          to[2 * n + 1] = p1;
+        }
+      }
+      grid.sync();
+      done += 1;
+      moved = grid.load(grid.ctrl() + ((done - 1) & 1)) == done;
+    }
+  }
+  if (threadIdx.x == 0) {
+    solved = done & 1;
+    if (blockIdx.x == 0) grid.finish(done);
+  }
+  for (next_tile(blockIdx.x); tile < tiles; next_tile(tile + gridDim.x)) {
+    const int i = tile * kTileItems + threadIdx.x % kTileItems;
+    const int32_t* from = grid.starts() + solved * 2 * items;
+    int32_t p0 = 0;
+    int32_t p1 = 0;
+    if (threadIdx.x < kTileItems && i < items) {  // K = 1: item i is lane i
+      p0 = K > 1 ? grid.load(from + 2 * i) : state[2 * i];
+      p1 = K > 1 ? grid.load(from + 2 * i + 1) : state[2 * i + 1];
+    }
+    run(Output<WITH_OUTPUT>{}, i, p0, p1);
+  }
+}
+
 // K chunks of Bc blocks cover B blocks with none empty (K*Bc >= B >
 // (K-1)*Bc), or B = 0 and K = 1 with Bc = 0.
 inline bool chunks_ok(int B, int K, int Bc) {
@@ -198,33 +297,36 @@ inline cudaError_t allow_smem(const void* fn, size_t smem) {
   return err;
 }
 
-// CTAs of kThreads of the cooperative kernel `fn`, with `smem` bytes of
-// dynamic shared memory each, that fit on one SM at once (the persistent
-// grid is this times the SM count at most), or minus a CUDA error code.
-inline int coop_occupancy(const void* fn, int device, size_t smem = 0) {
+// CTAs of `threads` threads of the cooperative kernel `fn`, with `smem`
+// bytes of dynamic shared memory each, that fit on one SM at once (the
+// persistent grid is this times the SM count at most), or minus a CUDA
+// error code.
+inline int coop_occupancy(const void* fn, int device, size_t smem = 0,
+                          int threads = kThreads) {
   if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = coop_device(device);
   if (err == cudaSuccess) err = allow_smem(fn, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, kThreads,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads,
                                                       smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return ctas;
 }
 
-// One cooperative launch of `fn` over `ctas` CTAs of kThreads, with `smem`
-// bytes of dynamic shared memory each, on `stream`, without synchronising.
-// A refused launch (too many CTAs to be co-resident, no cooperative launch
-// on the device) returns its error, and leaves no error behind for
-// cudaGetLastError().
+// One cooperative launch of `fn` over `ctas` CTAs of `threads` threads,
+// with `smem` bytes of dynamic shared memory each, on `stream`, without
+// synchronising.  A refused launch (too many CTAs to be co-resident, no
+// cooperative launch on the device) returns its error, and leaves no error
+// behind for cudaGetLastError().
 inline int coop_launch(const void* fn, void** args, int ctas, int device,
-                       void* stream, size_t smem = 0) {
+                       void* stream, size_t smem = 0,
+                       int threads = kThreads) {
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = coop_device(device);
   if (err == cudaSuccess) err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchCooperativeKernel(fn, dim3(ctas), dim3(kThreads), args,
+  err = cudaLaunchCooperativeKernel(fn, dim3(ctas), dim3(threads), args,
                                     smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear the launch error before returning it

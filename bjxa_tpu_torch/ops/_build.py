@@ -61,6 +61,12 @@ SIGNATURES = {
     "bjxa_empty_launch": (_I, _P),
     # pcm, state, profiles, coded, recon, end, B, L, bits, device, stream
     "bjxa_encode_search": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # pcm, state, profiles, coded, recon, end, scratch, B, L, K, Bc, bits,
+    # ctas, device, stream
+    "bjxa_encode_fixpoint": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _P),
+    # bits, device
+    "bjxa_encode_fixpoint_occupancy": (_I, _I),
     # first (blocks_t | prof), words, state, out, end, scratch, B, L, K, Bc,
     # load, store, ctas, device, stream
     "bjxa_decode_variant": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -15,9 +15,12 @@ Port of :mod:`bjxa_tpu.ops.encode`.  Two encoders:
 Blocks stay sequential (state feedback), so one stream alone would give
 the search only ``channels`` lanes.  :func:`encode_search_fixpoint` lifts
 that to ``K * channels`` lanes with the decoder's boundary-state fixed
-point, bit-identical to the sequential search; :func:`pick_encode_chunks`
-chooses K.  :func:`encode_stream_blocks` is what the whole-file entry
-points call; :func:`iter_encode_segments` streams a file of any size
+point, bit-identical to the sequential search (one cooperative launch of
+``csrc/encode_fixpoint.cu`` on a CUDA device, a host loop of searches on
+the CPU); :func:`pick_encode_chunks` chooses K, and
+:func:`encode_search_auto` is the search every caller takes: the fixed
+point where K > 1.  :func:`encode_stream_blocks` is what the whole-file
+entry points call; :func:`iter_encode_segments` streams a file of any size
 through the same encoders in fixed-size block segments (sharded over a
 ``mesh``'s sequence-parallel axis when it has several devices, by
 :func:`bjxa_tpu_torch.parallel.sharded.encode_file_sharded`);
@@ -101,26 +104,46 @@ def encode_search_fixpoint(
     forward, and iterate until nothing changes.  Chunk 0 is anchored at the
     true entry state, so after r rounds chunks 0..r-1 are exactly right;
     the fixed point IS the sequential encode (bitwise), reached in at most
-    ``num_chunks`` rounds.  Each round is one search over ``K * C`` lanes
-    and one host sync (the integer equality test of the end states).
+    ``num_chunks`` rounds.
+
+    With ``run=None`` this is
+    :func:`bjxa_tpu_torch.ops.cuda_encode.encode_search_fixpoint_lanes`: on
+    a CUDA device ONE launch of the fixed-point kernel (the stream read and
+    written in place) and one sync for the round count, on the CPU the host
+    loop below over the plain search.  With ``run`` it is the host loop on
+    any device: each round one ``run`` over ``K * C`` chunk lanes and one
+    host sync (the integer equality test of the end states).  Both count
+    the same rounds.
 
     Args:
       pcm:   int-like ``[B, 32, C]`` (zero-padded final block).
       state: ``int32[C, 2]`` entry state, on ``pcm``'s device.
       run:   ``run(lanes int16[Bc, 32, K*C], states int32[K*C, 2]) ->
-        (profiles, coded, recon, end)``, the per-round search;
-        :func:`encode_search` by default.
+        (profiles, coded, recon, end)``, the per-round search of the host
+        loop.
 
     Returns ``(profiles int32[B, C], coded int16[B, 32, C],
     recon int16[B, 32, C], end_state int32[C, 2], rounds int)`` on
-    ``pcm``'s device.
+    ``pcm``'s device; ``B = 0`` runs no round and ends at ``state``.
     """
-    run = run or partial(encode_search, bits=bits)
+    if run is None:
+        from bjxa_tpu_torch.ops.cuda_encode import (
+            encode_search_fixpoint_lanes,
+        )
+
+        *out, rounds = encode_search_fixpoint_lanes(
+            pcm.to(torch.int16).contiguous(),
+            state.to(torch.int32).contiguous(), bits=bits,
+            num_chunks=num_chunks,
+        )
+        return (*out, int(rounds.item()))
     B, ns, C = pcm.shape
     K = num_chunks
+    dev = pcm.device
+    if B == 0:
+        return (*run(pcm, state), 0)
     Bc = -(-B // K)
     pad = K * Bc - B
-    dev = pcm.device
     arr = pcm.to(torch.int16)
     if pad:
         arr = torch.cat(
@@ -167,7 +190,8 @@ def pick_encode_chunks(nblocks: int, channels: int) -> int:
     rounds).  A round costs one search over the chunk lanes plus one small
     host sync; on the CPU and on the card alike that is far cheaper than
     the ``nblocks``-long serial search over ``channels`` lanes (PERF.md).
-    Streams of fewer than 64 blocks search sequentially.
+    Streams of fewer than 64 blocks search sequentially.  The rule is the
+    JAX package's, unchanged; :func:`encode_search_auto` applies it.
 
     ``BJXA_ENCODE_FIXPOINT_CHUNKS`` overrides: ``0``/``off`` forces
     sequential, ``auto`` the default, an integer forces K (clamped to
@@ -189,6 +213,38 @@ def pick_encode_chunks(nblocks: int, channels: int) -> int:
     return max(min(k, nblocks // 16), 1)
 
 
+def encode_search_auto(pcm: torch.Tensor, state: torch.Tensor, *, bits: int,
+                       run=None):
+    """The profile search of ``pcm`` int-like ``[B, 32, L]`` from ``state``
+    ``int32[L, 2]``, as every encode path takes it: the fixed point at
+    :func:`pick_encode_chunks` ``(B, L)`` chunks when that gives K > 1
+    (:func:`bjxa_tpu_torch.ops.cuda_encode.encode_search_fixpoint_lanes`:
+    on a CUDA device one launch, without a sync), else one sequential
+    search (``run``, or :func:`encode_search`).  ``run`` replaces the
+    per-round search as in :func:`encode_search_fixpoint` (its host loop
+    then).  Bytes equal the sequential search either way.
+
+    Returns ``(profiles int32[B, L], coded int16[B, 32, L],
+    recon int16[B, 32, L], end int32[L, 2])`` on ``pcm``'s device, ``end``
+    the state after block B - 1.
+    """
+    B, _, L = pcm.shape
+    K = pick_encode_chunks(B, L)
+    if K == 1:
+        return (run or partial(encode_search, bits=bits))(pcm, state)
+    if run is None:
+        from bjxa_tpu_torch.ops.cuda_encode import (
+            encode_search_fixpoint_lanes,
+        )
+
+        return encode_search_fixpoint_lanes(
+            pcm.to(torch.int16).contiguous(),
+            state.to(torch.int32).contiguous(), bits=bits, num_chunks=K,
+        )[:4]
+    return encode_search_fixpoint(pcm, state, bits=bits, num_chunks=K,
+                                  run=run)[:4]
+
+
 def encode_stream_blocks(
     pcm: torch.Tensor, *, bits: int, search: bool, run=None
 ) -> torch.Tensor:
@@ -203,18 +259,13 @@ def encode_stream_blocks(
     Returns ``uint8[B, C, block_size]`` on ``pcm``'s device: channel-major
     inside each effective block, the file layout.
     """
-    B, _, C = pcm.shape
+    C = pcm.shape[2]
     state = torch.zeros((C, 2), dtype=torch.int32, device=pcm.device)
-    run = run or partial(encode_search, bits=bits)
-    K = pick_encode_chunks(B, C) if search else 1
-    if not search:
-        profiles, coded = encode_truncate(pcm)
-    elif K > 1:
-        profiles, coded, _recon, _end, _rounds = encode_search_fixpoint(
-            pcm, state, bits=bits, num_chunks=K, run=run
-        )
+    if search:
+        profiles, coded, _recon, _end = encode_search_auto(
+            pcm, state, bits=bits, run=run)
     else:
-        profiles, coded, _recon, _end = run(pcm, state)
+        profiles, coded = encode_truncate(pcm)
     # [B, 32, C] -> [B, C, 32] so packed bytes land channel-major
     return deflate_blocks(profiles, coded.transpose(1, 2), bits)
 
@@ -224,10 +275,13 @@ def encode_batch_blocks(pcm: torch.Tensor, *, bits: int,
     """Corpus-batch encode: PCM lanes of many streams -> packed XA blocks.
 
     Every lane (file x channel) starts from the zero state the emitted
-    headers carry.  ``search`` runs ONE sequential search over all blocks
-    and lanes (one launch of the search kernel on a CUDA device), not the
-    fixed point: the batch's lanes are its parallelism.  Bytes equal
-    per-file :func:`encode_stream_blocks`, since lanes never interact.
+    headers carry.  ``search`` runs :func:`encode_search_auto` over all
+    blocks and lanes: on a CUDA device ONE launch, of the fixed-point
+    kernel when :func:`pick_encode_chunks` gives the batch K > 1 (a batch
+    of 32 lanes would leave all but one SM idle in one serial search), of
+    the search kernel otherwise.  Bytes equal per-file
+    :func:`encode_stream_blocks` and the JAX package's one sequential
+    search, since lanes never interact and the fixed point is exact.
 
     Args:
       pcm: int-like ``[B, 32, L]`` lane-major samples (zero-padded final
@@ -240,7 +294,8 @@ def encode_batch_blocks(pcm: torch.Tensor, *, bits: int,
     state = torch.zeros((pcm.shape[-1], 2), dtype=torch.int32,
                         device=pcm.device)
     if search:
-        profiles, coded, _recon, _end = encode_search(pcm, state, bits=bits)
+        profiles, coded, _recon, _end = encode_search_auto(pcm, state,
+                                                           bits=bits)
     else:
         profiles, coded = encode_truncate(pcm)
     return deflate_blocks(profiles, coded.transpose(1, 2), bits).reshape(-1)
@@ -253,17 +308,9 @@ def _encode_segment(lanes: torch.Tensor, state: torch.Tensor, nblocks: int,
     bucket's zero blocks) from the entry ``state``.  Returns the packed
     bytes of the real blocks and the exact state after the last of them."""
     if search:
-        Kc = pick_encode_chunks(lanes.shape[0], lanes.shape[2])
-        if Kc > 1:
-            # chunk-parallel exact fixed point per segment: the search runs
-            # at Kc*channels lanes, bit-identical
-            profiles, coded, recon, _end, _r = encode_search_fixpoint(
-                lanes, state, bits=bits, num_chunks=Kc
-            )
-        else:
-            profiles, coded, recon, _end = encode_search(
-                lanes, state, bits=bits
-            )
+        # the fixed point per segment where it pays (one launch on a card)
+        profiles, coded, recon, _end = encode_search_auto(lanes, state,
+                                                          bits=bits)
         # carried state = after the last REAL block of this segment (the
         # bucket's pad blocks would corrupt the search's own end state)
         state = torch.stack(

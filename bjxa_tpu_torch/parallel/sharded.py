@@ -42,7 +42,11 @@ from bjxa_tpu_torch.ops.decode import (
     fixpoint_lanes_end_state,
 )
 from bjxa_tpu_torch.ops.deflate import deflate_blocks
-from bjxa_tpu_torch.ops.encode import encode_search, encode_truncate
+from bjxa_tpu_torch.ops.encode import (
+    encode_search,
+    encode_search_auto,
+    encode_truncate,
+)
 from bjxa_tpu_torch.ops.tables import BLOCK_SAMPLES
 from bjxa_tpu_torch.parallel.mesh import Mesh, dp_sharding
 
@@ -196,8 +200,10 @@ def decode_corpus_sharded_words(
 def _encode_shards(pcm_lanes, states, *, bits: int, search: bool,
                    mesh: Mesh, axis: str):
     """Shared body of the lane-sharded corpus encoders: per device, the
-    80-profile search (kernel 7 on a card) or truncation over its lanes,
-    then the bit-pack.  Returns ``(per-device uint8[B, L/n, S], L, Lp)``."""
+    80-profile search (through the fixed point where its lanes leave the
+    card idle: :func:`~bjxa_tpu_torch.ops.encode.encode_search_auto`) or
+    truncation over its lanes, then the bit-pack.  Returns ``(per-device
+    uint8[B, L/n, S], L, Lp)``."""
     devs = mesh.axis_devices(axis)
     pcm_lanes = np.asarray(pcm_lanes)
     L = pcm_lanes.shape[2]
@@ -208,7 +214,7 @@ def _encode_shards(pcm_lanes, states, *, bits: int, search: bool,
     for sl, d in zip(shards, devs):
         pcm = _put(pcm_lanes[:, :, sl], d)
         if search:
-            profiles, coded, _recon, _end = encode_search(
+            profiles, coded, _recon, _end = encode_search_auto(
                 pcm, _put(states[sl], d), bits=bits
             )
         else:

@@ -11,7 +11,8 @@ Phases, one line each (any failure raises and exits nonzero):
    compiler per source, all started together), with each kernel's
    registers and spills, and each instantiation of the variants kernel's
    registers, spills, shared memory and CTAs an SM (a spill in it, the
-   words kernel or the load/store bound fails the run); then the native
+   words kernel, the load/store bound or the search's fixed point fails
+   the run); then the native
    host library, the C ABI library and the C CLI of
    ``bjxa_tpu_torch/native`` with the host compiler, commands printed;
 2. each kernel, every instantiation, against its plain PyTorch version on
@@ -27,6 +28,9 @@ Phases, one line each (any failure raises and exits nonzero):
    (frames, end state, validity) and its chunked one (rounds) at every
    block count of the short path's checks x bits x channels x chunk size;
    the samples entry in both regimes (one CTA, one thread per lane);
+   the search's fixed point (``csrc/encode_fixpoint.cu``) against its plain
+   version, the host loop on the CPU (rounds included), at bits 4/6/8 x a
+   short last chunk, ragged lanes, whole chunks of pad, K = 1 and B = 0;
    every instantiation of the load/store variants at forced and picked
    chunk counts, ragged lane counts and warps that straddle two chunks,
    against their chunked plain version (rounds included) and the words and
@@ -54,9 +58,15 @@ Phases, one line each (any failure raises and exits nonzero):
    short-stream kernel, a segmented one a launch a segment,
    an oversized corpus file the same), the stream kernel's rounds equal
    its chunked plain version's at the card's K, and the encode's
-   fixed point took as many rounds on the card as on the CPU; the encode
-   corpus's one search launch gives the CLI's XA bytes and equals the plain
-   search on the card over the first and last blocks of its batch; the
+   fixed point took as many rounds on the card as on the CPU (a long
+   whole-file encode is ONE launch of the search's fixed point, whose rounds
+   equal the host loop's, a short one one launch of the serial search); the
+   encode corpus's batch is one launch of the fixed point, the serial
+   search's launch over the batch gives the CLI's XA bytes and equals the
+   plain search on the card over the first and last blocks of its batch;
+   the fixed point equals the serial kernel byte for byte, its rounds the
+   host loop's, at the corpus batch, an Encoder call and the 5-minute
+   stream; the
    segmented path gives the whole-file bytes, decodes a file above the
    256 MB threshold at a smaller peak RSS than the whole-file path, and
    fails like the CPU on an invalid profile and a truncated body; the
@@ -64,8 +74,9 @@ Phases, one line each (any failure raises and exits nonzero):
    ``decode --streaming`` of the 5-minute file gives the whole-file WAV,
    and a cut file and an invalid profile fail as the whole-file CPU run
    does; the streaming ``Encoder`` in a child process without the native
-   library searches on the card (one kernel-7 launch a call, ~101 calls)
-   and gives the native library's bytes and ``encode``'s; ``abi --install``
+   library searches on the card (one launch of the search's fixed point a
+   call, ~101 calls; again with the serial kernel alone) and gives the
+   native library's bytes and ``encode``'s; ``abi --install``
    and a C client built against it through pkg-config decode the
    saturation vector, and the installed C CLI the 5-minute file; the
    multi-device layer on meshes that name the card more than once (their
@@ -91,20 +102,24 @@ Phases, one line each (any failure raises and exits nonzero):
    stream (with and without output, a sweep of chunk sizes, its share of
    the measured
    load/store bound), the encoder's sequential search
-   against its fixed point, the words kernel against the lanes kernel, over
-   a sweep of chunk counts, and the search kernel alone on a corpus batch,
-   the words kernel's share of the measured load/store bound at the
-   headline shape, and the corpus engine end to
-   end, split by the stages it times itself (``Counters.stage_ms``); the
+   against its fixed point, the search's fixed point, the serial kernel
+   and the host loop at the corpus batch, an Encoder call and the 5-minute
+   stream (rounds, bounds, chain floors), the words kernel against the
+   lanes kernel, over a sweep of chunk counts, the words kernel's share of
+   the measured load/store bound at the headline shape, and the corpus
+   engine end to end, split by the stages it times itself
+   (``Counters.stage_ms``; the encode corpus also on the serial search
+   alone); the
    measurement kernels against their plain versions and their bounds,
    the variants beside the words kernel at the scripts' shape and on a
    corpus batch, the ALU probe's six forms in CUDA graphs and eagerly with
    its int16/int32 rate ratio from the graphs; and
    ``python -m bjxa_tpu_torch.bench`` and the bound, variant and probe
    scripts as child processes, their JSON lines echoed; ``decode
-   --streaming`` of the 5-minute file, the streaming Encoder's search a
-   block on the card (kernel 7 at two lanes) against the native host
-   search, and ``benchmarks/abi.py``; the ring decode on 1 and 4 entries
+   --streaming`` of the 5-minute file, the streaming Encoder's call on the
+   card (the fixed point, and kernel 7 at two lanes) against the native
+   host search, and ``benchmarks/abi.py``; the ring decode on 1 and 4
+   entries
    and the ring encode on 4 (seconds, rounds, launches), the corpus
    decode and encode on 2 entries against none, and
    ``benchmarks/multihost.py`` (1 and 2 processes) and
@@ -367,7 +382,7 @@ ENCODE_OPS_PER_CANDIDATE_SAMPLE = 15
 #: fused short-stream decode and one-CTA filter besides.
 KERNELS = ("decode_lanes", "filter_lanes", "encode_search", "decode_words",
            "decode_variants", "loadstore_bound", "alu_mix", "decode_stream",
-           "decode_short", "filter_short")
+           "decode_short", "filter_short", "encode_fixpoint")
 
 
 def sha1(data: bytes) -> str:
@@ -655,15 +670,12 @@ def check_kernels(torch, dev, rng):
     return worst
 
 
-def encode_counted(torch, wav: bytes, bits: int, search: bool, device):
-    """The port's whole-file encode of a WAVE image on ``device``, step by
-    step as ``wav_to_xa`` takes it, with the search rounds counted through
-    the fixed point's ``run`` parameter.  Returns ``(xa bytes, rounds)``."""
+def wav_lanes(torch, wav: bytes, device):
+    """A WAVE image's PCM as ``wav_to_xa`` stages it: int16 ``[blocks, 32,
+    channels]`` on ``device``, the last block zero-padded."""
     from bjxa_tpu_torch import (
-        BLOCK_SAMPLES, RIFF_HEADER_SIZE, XAFormat, dump_xa_header, load_pcm,
-        parse_riff_header,
+        BLOCK_SAMPLES, RIFF_HEADER_SIZE, load_pcm, parse_riff_header,
     )
-    from bjxa_tpu_torch.ops import encode as tencode
 
     rf = parse_riff_header(wav)
     pcm = load_pcm(wav[RIFF_HEADER_SIZE:RIFF_HEADER_SIZE + rf.data_len_pcm],
@@ -671,9 +683,20 @@ def encode_counted(torch, wav: bytes, bits: int, search: bool, device):
     nblocks = -(-rf.samples // BLOCK_SAMPLES)
     padded = np.zeros((nblocks * BLOCK_SAMPLES, rf.channels), np.int16)
     padded[: rf.samples] = pcm
-    lanes = torch.from_numpy(
-        padded.reshape(nblocks, BLOCK_SAMPLES, rf.channels)
-    ).to(device)
+    return torch.from_numpy(
+        padded.reshape(nblocks, BLOCK_SAMPLES, rf.channels)).to(device)
+
+
+def encode_counted(torch, wav: bytes, bits: int, search: bool, device):
+    """The port's whole-file encode of a WAVE image on ``device``, step by
+    step as ``wav_to_xa`` takes it, with the search rounds counted through
+    the fixed point's ``run`` parameter (which keeps its host loop, a
+    search a round, on the card too).  Returns ``(xa bytes, rounds)``."""
+    from bjxa_tpu_torch import XAFormat, dump_xa_header, parse_riff_header
+    from bjxa_tpu_torch.ops import encode as tencode
+
+    rf = parse_riff_header(wav)
+    lanes = wav_lanes(torch, wav, device)
     rounds = []
 
     def run(lanes, states):
@@ -737,6 +760,164 @@ def check_encode_kernel(torch, dev, rng) -> int:
     return worst
 
 
+#: The search's fixed point against its plain version in phase 2, (B, L,
+#: K): a short last chunk, L not a multiple of 32 (tiles straddle chunks),
+#: whole chunks of pad (Bc = 4), the least B that takes K > 1, K = 1 (the
+#: pass with output alone), more tiles than the grid at small L, no blocks.
+FIXPOINT_CHECKS = ((101, 2, 6), (101, 33, 7), (101, 2, 33), (64, 1, 4),
+                   (37, 45, 1), (300, 3, 37), (0, 2, 1))
+
+
+def check_encode_fixpoint_kernel(torch, dev, rng) -> int:
+    """Phase 2 for the search's fixed point: every bit depth at the ragged
+    shapes of ``FIXPOINT_CHECKS``, audio-like PCM from random entry states,
+    against its plain version (the host loop over the plain search, on the
+    CPU): all four outputs and the round count.  Returns the max |kernel -
+    plain|."""
+    from bjxa_tpu_torch.ops import cuda_encode
+
+    worst = 0
+    for bits in (4, 6, 8):
+        for B, L, K in FIXPOINT_CHECKS:
+            t = np.arange(B * 32)[:, None] * (2 * np.pi / 44100)
+            f = rng.uniform(80.0, 2000.0, size=(2, L))
+            x = 9000 * np.sin(f[0] * t) + 4000 * np.sin(f[1] * t)
+            x += rng.normal(0.0, 600.0, size=(B * 32, L))
+            pcm = np.clip(x, -32768, 32767).astype(np.int16).reshape(B, 32, L)
+            state = rng.integers(-30000, 30000, size=(L, 2)).astype(np.int32)
+            pcm_d = torch.from_numpy(pcm).to(dev)
+            state_d = torch.from_numpy(state).to(dev)
+            got = cuda_encode.encode_search_fixpoint_lanes(
+                pcm_d, state_d, bits=bits, num_chunks=K)
+            want = cuda_encode.encode_search_fixpoint_lanes_plain(
+                torch.from_numpy(pcm), torch.from_numpy(state), bits=bits,
+                num_chunks=K)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                worst = max(worst, exact_err(g.cpu(), w))
+    return worst
+
+
+def check_encode_fixpoint_shapes(torch, dev, enc: dict, corp: dict) -> dict:
+    """Phase 4 for the search's fixed point at the three shapes of its
+    main paths: the encode corpus's batch (B = 13,824, L = 32), a call of
+    the streaming Encoder (the 5-minute stream's second 4,096-block piece,
+    entered from its carried state) and the 5-minute stream (B = 413,438,
+    L = 2).  At each, its one launch gives the serial kernel's four outputs
+    byte for byte, and its rounds are the host loop's on the card (``run=``
+    the serial kernel).  Returns the inputs and rounds for phase 5."""
+    from functools import partial
+
+    from bjxa_tpu_torch.ops import cuda_encode
+    from bjxa_tpu_torch.ops import encode as tencode
+
+    t0 = time.perf_counter()
+    big = wav_lanes(torch, enc["big"], dev)
+    piece = CODEC_PIECE_BLOCKS
+    head = cuda_encode.encode_search_lanes(
+        big[:piece].contiguous(), torch.zeros((2, 2), dtype=torch.int32,
+                                              device=dev), bits=6)
+    entry = torch.stack([head[2][-1, 31], head[2][-1, 30]], dim=-1).to(
+        torch.int32).contiguous()
+    lanes = corp["lanes"]
+    shapes = {
+        "corpus_batch": (lanes, torch.zeros((lanes.shape[2], 2),
+                                            dtype=torch.int32, device=dev)),
+        "encoder_call": (big[piece:2 * piece].contiguous(), entry),
+        "5min": (big, torch.zeros((2, 2), dtype=torch.int32, device=dev)),
+    }
+    out = {}
+    for name, (pcm, state) in shapes.items():
+        B, _, L = pcm.shape
+        K = tencode.pick_encode_chunks(B, L)
+        serial = partial(cuda_encode.encode_search_lanes, bits=6)
+        got = cuda_encode.encode_search_fixpoint_lanes(pcm, state, bits=6,
+                                                       num_chunks=K)
+        want = serial(pcm, state)
+        for g, w in zip(got[:4], want):
+            exact_err(g, w)
+        *_, loop_rounds = tencode.encode_search_fixpoint(
+            pcm, state, bits=6, num_chunks=K, run=serial)
+        rounds = int(got[4].item())
+        if rounds != loop_rounds:
+            raise AssertionError(f"{name}: the kernel took {rounds} rounds,"
+                                 f" the host loop {loop_rounds}")
+        Bc = -(-B // K)
+        out[name] = {"pcm": pcm, "state": state, "K": K, "Bc": Bc,
+                     "rounds": rounds}
+        phase(4, "encode_fixpoint_equals_serial", shape=name,
+              B=B, L=L, K=K, Bc=Bc, items=K * L, rounds=rounds,
+              host_loop_rounds=loop_rounds, outputs_equal=4)
+    phase(4, "encode_fixpoint_shapes",
+          seconds=f"{time.perf_counter() - t0:.3f}")
+    return out
+
+
+def encode_fixpoint_timings(torch, dev, gpu: str, shapes: dict) -> dict:
+    """Phase 5 for the search's fixed point at its three shapes: its one
+    launch, the serial kernel and the host loop (a serial launch and a
+    sync a round; host clock), with rounds, the operations bound of one
+    search of the same blocks (which counts no round) and the chain floor:
+    (rounds + 1) passes x Bc blocks x the serial kernel's time a block on
+    one CTA alone (at the Encoder's call, L = 2: one CTA), measured here.
+    Its plain version (the host loop over the plain search, on the card) is
+    timed once at the corpus batch.  Returns the numbers by shape."""
+    from functools import partial
+
+    from bjxa_tpu_torch.ops import cuda_encode
+    from bjxa_tpu_torch.ops import encode as tencode
+
+    t_all = time.perf_counter()
+    out = {}
+    for name, sh in shapes.items():
+        pcm, state, K = sh["pcm"], sh["state"], sh["K"]
+        B, _, L = pcm.shape
+        fix = cuda_ms(torch, lambda: cuda_encode.encode_search_fixpoint_lanes(
+            pcm, state, bits=6, num_chunks=K), reps=5)
+        ser = cuda_ms(torch, lambda: cuda_encode.encode_search_lanes(
+            pcm, state, bits=6), reps=1 if B > 100000 else 3)
+        serial = partial(cuda_encode.encode_search_lanes, bits=6)
+        loop = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tencode.encode_search_fixpoint(pcm, state, bits=6, num_chunks=K,
+                                           run=serial)
+            torch.cuda.synchronize()
+            loop.append((time.perf_counter() - t0) * 1e3)
+        b_ms, b_by = encode_bound(B, L)
+        out[name] = {"ms": fix, "serial_ms": ser,
+                     "host_loop_ms": statistics.median(loop),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     **{k: sh[k] for k in ("K", "Bc", "rounds")}}
+    block_ms = out["encoder_call"]["serial_ms"] / shapes["encoder_call"][
+        "pcm"].shape[0]
+    for name, r in out.items():
+        r["chain_floor_ms"] = (r["rounds"] + 1) * r["Bc"] * block_ms
+        phase(5, "time_encode_fixpoint", gpu=repr(gpu), shape=name,
+              B=shapes[name]["pcm"].shape[0], L=shapes[name]["pcm"].shape[2],
+              K=r["K"], Bc=r["Bc"], rounds=r["rounds"],
+              kernel_ms=f"{r['ms']:.6f}", serial_ms=f"{r['serial_ms']:.6f}",
+              host_loop_ms=f"{r['host_loop_ms']:.6f}",
+              bound_ms=f"{r['bound_ms']:.6f}", bound_by=r["bound_by"],
+              chain_floor_ms=f"{r['chain_floor_ms']:.6f}",
+              one_cta_us_per_block=f"{block_ms * 1e3:.4f}")
+    sh = shapes["corpus_batch"]
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    cuda_encode.encode_search_fixpoint_lanes_plain(
+        sh["pcm"], sh["state"], bits=6, num_chunks=sh["K"])
+    stop.record()
+    stop.synchronize()
+    out["corpus_batch"]["plain_ms"] = start.elapsed_time(stop)
+    phase(5, "time_encode_fixpoint_plain", gpu=repr(gpu),
+          shape="corpus_batch",
+          plain_ms=f"{out['corpus_batch']['plain_ms']:.3f}",
+          seconds=f"{time.perf_counter() - t_all:.3f}")
+    return out
+
+
 def encode_known_answers(torch, dev, rng) -> None:
     """Phase 3 for the encoder: the ranking contract's vectors
     (tests/test_encode.py) and a round trip through the card's decode."""
@@ -775,7 +956,7 @@ def encode_main_path(torch, dev, rng) -> dict:
     path in-process with its launches counted.  Returns what phase 5 and
     the summary need."""
     from bjxa_tpu_torch import parse_xa_header, wav_to_xa
-    from bjxa_tpu_torch.ops import cuda_decode, cuda_encode, cuda_filter
+    from bjxa_tpu_torch.ops import encode as tencode
     from bjxa_tpu_torch.ops.encode import pick_encode_chunks
 
     wavs, refs, rounds = {}, {}, {}
@@ -880,32 +1061,41 @@ def encode_main_path(torch, dev, rng) -> dict:
           blocks=nblocks, K=pick_encode_chunks(nblocks, channels),
           rounds=mid_rounds, sequential_bytes_equal=True)
 
-    # the main path in-process, counted: every kernel of it must launch,
-    # the search once per fixed-point round
+    # the main path in-process, each encode counted from 0: the long stream
+    # is ONE launch of the search's fixed point, the short one one launch
+    # of the serial search, and nothing else launches
     big, short = wavs["stereo6_5min"], wavs["stereo8_23blocks"]
-    for mod in (cuda_decode, cuda_filter, cuda_encode):
-        mod.LAUNCHES = 0
-    got_big = wav_to_xa(big, device=dev)
-    big_launches = cuda_encode.LAUNCHES
-    got_short = wav_to_xa(short, 8, device=dev)
-    launches = cuda_encode.LAUNCHES
+    got_big, _s, big_counts = counted(lambda: wav_to_xa(big, device=dev),
+                                      "encode_fixpoint")
+    got_short, _s, short_counts = counted(
+        lambda: wav_to_xa(short, 8, device=dev), "encode_search")
     if got_big != refs["stereo6_5min"] or got_short != refs[
         "stereo8_23blocks"
     ]:
         raise AssertionError("in-process card XA != CPU XA")
+    if big_counts["encode_fixpoint"] != 1 or short_counts[
+            "encode_search"] != 1:
+        raise AssertionError(f"the long encode launched {big_counts}, the"
+                             f" short one {short_counts}")
+    # the kernel's rounds equal the host loop's on the card (``rounds``:
+    # encode_counted's run= keeps the loop there)
     big_rounds = rounds["stereo6_5min"]
-    if big_launches != big_rounds:
-        raise AssertionError(f"encode kernel launched {big_launches} times,"
-                             f" want rounds = {big_rounds}")
-    if launches - big_launches < 1:
-        raise AssertionError("the short stream never launched the kernel")
     blocks = parse_xa_header(refs["stereo6_5min"]).blocks
     K = pick_encode_chunks(blocks, 2)
+    lanes = wav_lanes(torch, big, dev)
+    *_, kernel_rounds = tencode.encode_search_fixpoint(
+        lanes, torch.zeros((2, 2), dtype=torch.int32, device=dev), bits=6,
+        num_chunks=K)
+    if kernel_rounds != big_rounds:
+        raise AssertionError(f"fixed-point kernel: {kernel_rounds} rounds,"
+                             f" the host loop {big_rounds}")
     phase(4, "encode_main_path_launches", K=K, Bc=-(-blocks // K),
-          lanes=2 * K, rounds=big_rounds, encode_search=launches,
-          decode_lanes=cuda_decode.LAUNCHES, filter_lanes=cuda_filter.LAUNCHES)
+          items=2 * K, rounds=big_rounds, host_loop_rounds=big_rounds,
+          long=big_counts, short=short_counts)
     return {"big": big, "ref": refs["stereo6_5min"], "rounds": big_rounds,
-            "K": K, "launches": launches, "mid": mid, "seq_s": seq_s}
+            "K": K, "launches": short_counts["encode_search"],
+            "fixpoint_launches": big_counts["encode_fixpoint"], "mid": mid,
+            "seq_s": seq_s}
 
 
 def encode_timings(torch, dev, gpu: str, enc: dict) -> tuple:
@@ -966,19 +1156,12 @@ def encode_timings(torch, dev, gpu: str, enc: dict) -> tuple:
           msamples_per_s=f"{total / e2e_s / 1e6:.3f}",
           runs=[f"{s:.6f}" for s in e2e])
 
-    # where one encode's time goes, by stage (host clock, synchronized);
-    # each round runs from its search launch to the next one (the equality
-    # sync included), the last to the end of the unscramble
-    stages = {k: [] for k in ("stage", "h2d", "lanes", "rounds", "deflate",
-                              "d2h", "header")}
+    # where one encode's time goes, by stage (host clock, synchronized):
+    # the search is one launch of its fixed point and the sync that reads
+    # its round count
+    stages = {k: [] for k in ("stage", "h2d", "search", "deflate", "d2h",
+                              "header")}
     for _ in range(5):
-        marks = []
-
-        def run(lanes, states):
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            return tencode.encode_search(lanes, states, bits=6)
-
         t = [time.perf_counter()]
         pcm = load_pcm(big[44:44 + rf.data_len_pcm], C)
         padded = np.zeros((nblocks * BLOCK_SAMPLES, C), np.int16)
@@ -990,7 +1173,7 @@ def encode_timings(torch, dev, gpu: str, enc: dict) -> tuple:
         t.append(time.perf_counter())
         prof, coded, _r, _e, rounds = tencode.encode_search_fixpoint(
             pcm_d, torch.zeros((C, 2), dtype=torch.int32, device=dev),
-            bits=6, num_chunks=K, run=run)
+            bits=6, num_chunks=K)
         torch.cuda.synchronize()
         t_fix = time.perf_counter()
         blocks = deflate_blocks(prof, coded.transpose(1, 2), 6)
@@ -1005,19 +1188,14 @@ def encode_timings(torch, dev, gpu: str, enc: dict) -> tuple:
         t_hdr = time.perf_counter()
         if out != enc["ref"] or rounds != enc["rounds"]:
             raise AssertionError("staged encode XA != CPU XA")
-        ends = marks[1:] + [t_fix]
         stages["stage"].append((t[1] - t[0]) * 1e3)
         stages["h2d"].append((t[2] - t[1]) * 1e3)
-        stages["lanes"].append((marks[0] - t[2]) * 1e3)
-        stages["rounds"].append([(b - a) * 1e3 for a, b in zip(marks, ends)])
+        stages["search"].append((t_fix - t[2]) * 1e3)
         stages["deflate"].append((t_def - t_fix) * 1e3)
         stages["d2h"].append((t_d2h - t_def) * 1e3)
         stages["header"].append((t_hdr - t_d2h) * 1e3)
-    split = {k: f"{statistics.median(v):.3f}" for k, v in stages.items()
-             if k != "rounds"}
-    per_round = [f"{statistics.median(r):.3f}" for r in zip(*stages["rounds"])]
-    phase(5, "wav_to_xa_stages_ms", gpu=repr(gpu), **split,
-          round_ms=per_round)
+    phase(5, "wav_to_xa_stages_ms", gpu=repr(gpu), rounds=enc["rounds"],
+          **{k: f"{statistics.median(v):.3f}" for k, v in stages.items()})
 
     # sequential against the fixed point on the mid-size stream
     mid = enc["mid"]
@@ -1471,8 +1649,6 @@ def encode_corpus_main_path(torch, dev, rng, tmp: pathlib.Path) -> dict:
     counted; and the kernel at the batch's shape against its plain
     version."""
     from bjxa_tpu_torch import encode_corpus, wav_to_xa
-    from bjxa_tpu_torch.ops import (cuda_decode, cuda_decode_words,
-                                    cuda_encode, cuda_filter)
 
     t_phase = time.perf_counter()
     n_files, channels, frames = ENCODE_CORPUS
@@ -1511,21 +1687,23 @@ def encode_corpus_main_path(torch, dev, rng, tmp: pathlib.Path) -> dict:
                       for p in (tmp / f"enc_short_{plat}").glob("*.xa")}
     if outs[None] != outs["cpu"] or len(outs[None]) != 2:
         raise AssertionError("short encode corpus: card XA != CPU XA")
-    for mod in (cuda_decode, cuda_decode_words, cuda_encode, cuda_filter):
-        mod.LAUNCHES = 0
-    run = encode_corpus(src, tmp / "enc_xa_inproc", device=dev)
-    launches = cuda_encode.LAUNCHES
+    # the batch is one launch of the search's fixed point and nothing else
+    run, _secs, got = counted(
+        lambda: encode_corpus(src, tmp / "enc_xa_inproc", device=dev),
+        "encode_fixpoint")
+    launches = got["encode_fixpoint"]
     if run.converted != n_files or run.failed or launches != 1:
         raise AssertionError(f"in-process encode corpus: {run.converted},"
-                             f" {run.failed}, {launches} launches")
+                             f" {run.failed}, {got}")
     for i in range(n_files):
         if ((tmp / "enc_xa_inproc" / f"w{i:02d}.xa").read_bytes()
                 != (tmp / "enc_xa" / f"w{i:02d}.xa").read_bytes()):
             raise AssertionError(f"encode corpus w{i:02d}: in-process != CLI")
     nblocks = -(-frames // 32)
     phase(4, "cli_corpus_encode_equals_wav_to_xa", files=n_files,
-          blocks=nblocks, lanes=n_files * channels, encode_search=launches,
-          decode_words=cuda_decode_words.LAUNCHES,
+          blocks=nblocks, lanes=n_files * channels, encode_fixpoint=launches,
+          encode_search=got["encode_search"],
+          decode_words=got["decode_words"],
           cpu_files=list(ENCODE_CORPUS_CPU_FILES), cpu_s=f"{cpu_s:.3f}",
           short_equals_cpu=True,
           seconds=f"{time.perf_counter() - t_phase:.3f}")
@@ -1558,16 +1736,16 @@ def corpus_timings(torch, dev, gpu: str, corp: dict, enc: dict,
                    tmp: pathlib.Path) -> tuple:
     """Phase 5 for the corpus engine: the words kernel against its plain
     version at the headline shape, against the lanes kernel on one corpus
-    batch, the packed H2D against three, the search kernel on the encode
-    corpus's batch, and ``decode_corpus`` and ``encode_corpus`` end to end
-    and by the stages they time themselves.  Returns the words kernel's
+    batch, the packed H2D against three, and ``decode_corpus`` and
+    ``encode_corpus`` end to end and by the stages they time themselves
+    (``encode_corpus`` on its route and on the serial search kernel alone).
+    Returns the words kernel's
     and its plain version's ms at the headline shape, with and without
     output, and the corpus batch's numbers."""
     import shutil
 
     from bjxa_tpu_torch import decode_corpus, encode_corpus, parse_xa_header
     from bjxa_tpu_torch.ops import cuda_decode, cuda_decode_words as cdw
-    from bjxa_tpu_torch.ops import cuda_encode
     from bjxa_tpu_torch.ops import decode as tdecode
     from bjxa_tpu_torch.parallel.corpus import stage_decode_batch
 
@@ -1676,19 +1854,6 @@ def corpus_timings(torch, dev, gpu: str, corp: dict, enc: dict,
           mbytes=f"{buf.numel() * 4 / 1e6:.3f}", packed_ms=f"{one:.6f}",
           three_ms=f"{three:.6f}")
 
-    # the search kernel on the encode corpus's staged batch (one launch
-    # of encode_corpus)
-    lanes = enc["lanes"]
-    zeros = torch.zeros((lanes.shape[2], 2), dtype=torch.int32, device=dev)
-    search_ms = cuda_ms(torch, lambda: cuda_encode.encode_search_lanes(
-        lanes, zeros, bits=6), reps=3)
-    b_ms, b_by = encode_bound(lanes.shape[0], lanes.shape[2])
-    phase(5, "time_encode_search_corpus_batch", gpu=repr(gpu),
-          shape=f"B={lanes.shape[0]},L={lanes.shape[2]},bits=6",
-          kernel_ms=f"{search_ms:.6f}",
-          us_per_block=f"{search_ms * 1e3 / lanes.shape[0]:.3f}",
-          bound_ms=f"{b_ms:.6f}", bound_by=b_by)
-
     # decode_corpus end to end after a warm pass, median of 3, and the
     # stages it times itself
     samples = n_files * nblocks * 32 * channels
@@ -1712,28 +1877,39 @@ def corpus_timings(torch, dev, gpu: str, corp: dict, enc: dict,
     phase(5, "decode_corpus_stages_ms", gpu=repr(gpu), **stage_split(counted))
 
     # encode_corpus end to end after a warm pass, median of 3, and the
-    # stages it times itself
+    # stages it times itself: its route (the batch through the search's
+    # fixed point), then the serial search kernel alone on the same batch
+    # (BJXA_ENCODE_FIXPOINT_CHUNKS=0, the route before the fixed point)
     en_files, _ch, en_frames = ENCODE_CORPUS
-    runs, counted = [], []
-    for rep in range(4):
-        out = tmp / f"enc_time_{rep}"
-        t0 = time.perf_counter()
-        res = encode_corpus(enc["src"], out, device=dev)
-        dt = time.perf_counter() - t0
-        if res.converted != en_files:
-            raise AssertionError(f"timed encode corpus: {res.converted}")
-        shutil.rmtree(out)
-        if rep:
-            runs.append(dt)
-            counted.append(res.counters)
-    e2e = statistics.median(runs)
-    phase(5, "time_encode_corpus", gpu=repr(gpu), files=en_files,
-          seconds=f"{e2e:.6f}", files_per_s=f"{en_files / e2e:.3f}",
-          msamples_per_s=f"{en_files * en_frames * 2 / e2e / 1e6:.3f}",
-          runs=[f"{s:.6f}" for s in runs],
-          search_share=f"{search_ms / (e2e * 1e3):.4f}")
-    phase(5, "encode_corpus_stages_ms", gpu=repr(gpu), **stage_split(counted),
-          phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
+    for route in ("fixpoint", "serial"):
+        if route == "serial":
+            os.environ["BJXA_ENCODE_FIXPOINT_CHUNKS"] = "0"
+        runs, counted = [], []
+        try:
+            for rep in range(4):
+                out = tmp / f"enc_time_{rep}"
+                t0 = time.perf_counter()
+                res = encode_corpus(enc["src"], out, device=dev)
+                dt = time.perf_counter() - t0
+                if res.converted != en_files:
+                    raise AssertionError(
+                        f"timed encode corpus: {res.converted}")
+                shutil.rmtree(out)
+                if rep:
+                    runs.append(dt)
+                    counted.append(res.counters)
+        finally:
+            os.environ.pop("BJXA_ENCODE_FIXPOINT_CHUNKS", None)
+        e2e = statistics.median(runs)
+        suffix = "" if route == "fixpoint" else "_serial_route"
+        phase(5, f"time_encode_corpus{suffix}", gpu=repr(gpu),
+              files=en_files, route=route, seconds=f"{e2e:.6f}",
+              files_per_s=f"{en_files / e2e:.3f}",
+              msamples_per_s=f"{en_files * en_frames * 2 / e2e / 1e6:.3f}",
+              runs=[f"{s:.6f}" for s in runs])
+        phase(5, f"encode_corpus_stages_ms{suffix}", gpu=repr(gpu),
+              route=route, **stage_split(counted),
+              phase_seconds=f"{time.perf_counter() - t_phase:.3f}")
     return ms, corpus_batch
 
 
@@ -1949,7 +2125,7 @@ def segmented_counted(torch, dev, xa: bytes, whole_wav: bytes, wav: bytes,
     from bjxa_tpu_torch.ops import cuda_decode, cuda_encode
 
     cuda_decode.LAUNCHES = cuda_decode.STREAM_LAUNCHES = 0
-    cuda_encode.LAUNCHES = 0
+    cuda_encode.LAUNCHES = cuda_encode.FIXPOINT_LAUNCHES = 0
     out = io.BytesIO()
     fmt = decode_xa_stream(io.BytesIO(xa), out, device=dev,
                            segment_blocks=SEGMENT_BLOCKS)
@@ -1959,21 +2135,24 @@ def segmented_counted(torch, dev, xa: bytes, whole_wav: bytes, wav: bytes,
     out = io.BytesIO()
     encode_wav_stream(io.BytesIO(wav), out, device=dev,
                       segment_blocks=SEGMENT_BLOCKS)
-    encode_launches = cuda_encode.LAUNCHES
+    encode_launches = cuda_encode.FIXPOINT_LAUNCHES
     if out.getvalue() != whole_xa:
         raise AssertionError("encode_wav_stream XA != whole-file XA")
     segments = -(-fmt.blocks // SEGMENT_BLOCKS)
+    # a segment is one launch: the stream kernel, the search's fixed point
     if (decode_launches != segments or cuda_decode.LAUNCHES
-            or encode_launches < segments):
+            or encode_launches != segments or cuda_encode.LAUNCHES):
         raise AssertionError(
             f"segmented path: {decode_launches} stream-kernel,"
-            f" {cuda_decode.LAUNCHES} lanes-kernel and {encode_launches}"
-            f" search launches over {segments} segments")
+            f" {cuda_decode.LAUNCHES} lanes-kernel, {encode_launches}"
+            f" fixed-point and {cuda_encode.LAUNCHES} search launches over"
+            f" {segments} segments")
     phase(4, "segmented_main_path_launches", segments=segments,
           decode_stream=decode_launches, decode_lanes=cuda_decode.LAUNCHES,
-          encode_search=encode_launches)
+          encode_fixpoint=encode_launches,
+          encode_search=cuda_encode.LAUNCHES)
     return {"decode_stream": decode_launches,
-            "encode_search": encode_launches}
+            "encode_fixpoint": encode_launches}
 
 
 def oversized_corpus_counted(torch, dev, images: dict, wavs: dict) -> int:
@@ -2581,7 +2760,8 @@ def codec_encode_child(wav_path: str, xa_path: str, piece_blocks: str) -> None:
     """Run in a child process under ``BJXA_NO_NATIVE=1``: the streaming
     :class:`~bjxa_tpu_torch.codec.Encoder` search-encodes a WAV file on the
     card, fed ``piece_blocks`` blocks a call; prints its launches of the
-    search kernel, the calls and each call's ms as JSON."""
+    search's fixed point and of the serial search kernel, the calls and
+    each call's ms as JSON."""
     from bjxa_tpu_torch import codec, native, parse_riff_header
     from bjxa_tpu_torch.ops import cuda_encode
 
@@ -2589,12 +2769,12 @@ def codec_encode_child(wav_path: str, xa_path: str, piece_blocks: str) -> None:
         raise AssertionError("the child must run without the native library")
     wav = pathlib.Path(wav_path).read_bytes()
     rf = parse_riff_header(wav)
-    cuda_encode.LAUNCHES = 0
+    cuda_encode.LAUNCHES = cuda_encode.FIXPOINT_LAUNCHES = 0
     xa, call_ms = codec_encode(codec.Encoder(), rf, wav, int(piece_blocks))
-    launches = cuda_encode.LAUNCHES
     pathlib.Path(xa_path).write_bytes(xa)
-    print(json.dumps({"launches": launches, "calls": len(call_ms),
-                      "call_ms": call_ms}), flush=True)
+    print(json.dumps({"fixpoint_launches": cuda_encode.FIXPOINT_LAUNCHES,
+                      "launches": cuda_encode.LAUNCHES,
+                      "calls": len(call_ms), "call_ms": call_ms}), flush=True)
 
 
 def codec_encode(enc, rf, wav: bytes, piece_blocks: int) -> tuple:
@@ -2687,30 +2867,38 @@ def _streaming_main_path(tmp: pathlib.Path, images: dict, ref: dict,
         raise AssertionError("the native library is off")
     native_xa, native_ms = codec_encode(codec.Encoder(), rf, wav,
                                         CODEC_PIECE_BLOCKS)
-    res = subprocess.run(
-        [sys.executable, "-c",
-         "import sys, chip_smoke;"
-         " chip_smoke.codec_encode_child(*sys.argv[1:])",
-         str(tmp / "big.wav"), str(tmp / "codec.xa"),
-         str(CODEC_PIECE_BLOCKS)],
-        cwd=ROOT, env=child_env(None, BJXA_NO_NATIVE=1), capture_output=True,
-        text=True, timeout=600)
-    if res.returncode != 0:
-        raise AssertionError(f"codec child: exit {res.returncode}"
-                             f" {res.stderr[-2000:]}")
-    child = json.loads(res.stdout.splitlines()[-1])
-    card_xa = (tmp / "codec.xa").read_bytes()
-    if child["launches"] != child["calls"] or child["calls"] != len(
-            native_ms):
-        raise AssertionError(f"codec child: {child['launches']} launches over"
-                             f" {child['calls']} calls")
-    if card_xa != native_xa or card_xa != enc["ref"]:
-        raise AssertionError(f"streaming Encoder XA: card == native"
-                             f" {card_xa == native_xa}, native == encode"
-                             f" {native_xa == enc['ref']}")
+    # the card's Encoder in a child, through the fixed point (every call
+    # has 64 blocks or more), and again on the serial search kernel alone
+    children = {}
+    for route, extra in (("fixpoint", {}),
+                         ("serial", {"BJXA_ENCODE_FIXPOINT_CHUNKS": 0})):
+        res = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, chip_smoke;"
+             " chip_smoke.codec_encode_child(*sys.argv[1:])",
+             str(tmp / "big.wav"), str(tmp / f"codec_{route}.xa"),
+             str(CODEC_PIECE_BLOCKS)],
+            cwd=ROOT, env=child_env(None, BJXA_NO_NATIVE=1, **extra),
+            capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"codec child ({route}): exit"
+                                 f" {res.returncode} {res.stderr[-2000:]}")
+        child = children[route] = json.loads(res.stdout.splitlines()[-1])
+        want = ((child["calls"], 0) if route == "fixpoint"
+                else (0, child["calls"]))
+        if ((child["fixpoint_launches"], child["launches"]) != want
+                or child["calls"] != len(native_ms)):
+            raise AssertionError(f"codec child ({route}): {child}")
+        card_xa = (tmp / f"codec_{route}.xa").read_bytes()
+        if card_xa != native_xa or card_xa != enc["ref"]:
+            raise AssertionError(f"streaming Encoder XA ({route}): card =="
+                                 f" native {card_xa == native_xa}, native =="
+                                 f" encode {native_xa == enc['ref']}")
+    child = children["fixpoint"]
     phase(4, "codec_encoder_card_equals_native_and_encode",
           stream="stereo6_5min", piece_blocks=CODEC_PIECE_BLOCKS,
-          calls=child["calls"], encode_search=child["launches"],
+          calls=child["calls"], encode_fixpoint=child["fixpoint_launches"],
+          serial_route_encode_search=children["serial"]["launches"],
           xa_bytes=len(card_xa), sha1=sha1(card_xa)[:12],
           seconds=f"{time.perf_counter() - t0:.3f}")
 
@@ -2758,7 +2946,9 @@ def _streaming_main_path(tmp: pathlib.Path, images: dict, ref: dict,
           c_cli_saturation="match", c_cli_5min_wav="match",
           seconds=f"{time.perf_counter() - t0:.3f}")
     return {"streaming_s": runs, "native_ms": native_ms,
-            "card_ms": child["call_ms"], "launches": child["launches"],
+            "card_ms": child["call_ms"],
+            "serial_card_ms": children["serial"]["call_ms"],
+            "launches": child["fixpoint_launches"],
             "calls": child["calls"], "samples": rf.samples * rf.channels}
 
 
@@ -2807,12 +2997,14 @@ int main(void) {
 
 def streaming_timings(torch, dev, gpu: str, st: dict) -> dict:
     """Phase 5 for the streaming codec and the C ABI: ``decode
-    --streaming`` of the 5-minute file; the streaming Encoder's search a
-    block on the card (kernel 7 at L = 2, its launch timed alone by CUDA
-    events) against the native host search, and its plain version on the
-    same piece; ``benchmarks/abi.py``.  Returns kernel 7's and the plain
-    version's ms at the Encoder's shape."""
+    --streaming`` of the 5-minute file; the streaming Encoder's call on the
+    card (through the search's fixed point, and on the serial kernel alone)
+    against the native host search, each search launch timed alone by CUDA
+    events (kernel 7 at L = 2, the fixed point at K = 256), and the plain
+    version on the same piece; ``benchmarks/abi.py``.  Returns kernel 7's
+    and the plain version's ms at the Encoder's shape."""
     from bjxa_tpu_torch.ops import cuda_encode
+    from bjxa_tpu_torch.ops.encode import pick_encode_chunks
 
     t_all = time.perf_counter()
 
@@ -2823,6 +3015,7 @@ def streaming_timings(torch, dev, gpu: str, st: dict) -> dict:
           runs=[f"{r:.6f}" for r in st["streaming_s"]])
     # every call but the last (a partial piece)
     card = statistics.median(st["card_ms"][:-1])
+    serial_card = statistics.median(st["serial_card_ms"][:-1])
     host = statistics.median(st["native_ms"][:-1])
     rng = np.random.default_rng(SEED + 23)
     pcm = torch.from_numpy(rng.integers(
@@ -2831,6 +3024,11 @@ def streaming_timings(torch, dev, gpu: str, st: dict) -> dict:
     state = torch.zeros((2, 2), dtype=torch.int32, device=dev)
     k_ms = cuda_ms(torch, lambda: cuda_encode.encode_search_lanes(
         pcm, state, bits=6), reps=5)
+    K = pick_encode_chunks(CODEC_PIECE_BLOCKS, 2)
+    f_ms = cuda_ms(torch, lambda: cuda_encode.encode_search_fixpoint_lanes(
+        pcm, state, bits=6, num_chunks=K), reps=5)
+    fix = cuda_encode.encode_search_fixpoint_lanes(pcm, state, bits=6,
+                                                   num_chunks=K)
     # its plain version on the whole of the same input, timed once (a
     # Python loop of ~20 small launches a sample: seconds, not ms)
     got = cuda_encode.encode_search_lanes(pcm, state, bits=6)
@@ -2841,15 +3039,20 @@ def streaming_timings(torch, dev, gpu: str, st: dict) -> dict:
     stop.record()
     stop.synchronize()
     p_ms = start.elapsed_time(stop)
-    for g, w in zip(got, want):
+    for g, f, w in zip(got, fix, want):
         exact_err(g.cpu(), w.cpu())
+        exact_err(f.cpu(), w.cpu())
     phase(5, "time_codec_encoder_search", gpu=repr(gpu),
           piece_blocks=CODEC_PIECE_BLOCKS, lanes=2, calls=st["calls"],
-          card_call_ms=f"{card:.3f}", native_call_ms=f"{host:.3f}",
+          card_call_ms=f"{card:.3f}",
+          serial_route_call_ms=f"{serial_card:.3f}",
+          native_call_ms=f"{host:.3f}",
           card_us_per_block=f"{card * 1e3 / CODEC_PIECE_BLOCKS:.3f}",
           native_us_per_block=f"{host * 1e3 / CODEC_PIECE_BLOCKS:.3f}",
           kernel_ms=f"{k_ms:.6f}",
           kernel_us_per_block=f"{k_ms * 1e3 / CODEC_PIECE_BLOCKS:.4f}",
+          fixpoint_ms=f"{f_ms:.6f}", fixpoint_K=K,
+          fixpoint_rounds=int(fix[4].item()),
           plain_ms=f"{p_ms:.3f}", plain_check_blocks=CODEC_PIECE_BLOCKS)
     res = subprocess.run(
         [sys.executable, "-m", "bjxa_tpu_torch.benchmarks.abi"], cwd=ROOT,
@@ -2873,6 +3076,7 @@ def zero_launches() -> None:
     for mod in (cuda_decode, cuda_decode_words, cuda_encode, cuda_filter):
         mod.LAUNCHES = 0
     cuda_decode.STREAM_LAUNCHES = cuda_filter.SHORT_LAUNCHES = 0
+    cuda_encode.FIXPOINT_LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -2885,7 +3089,8 @@ def read_launches() -> dict:
             "decode_short": cuda_filter.SHORT_LAUNCHES,
             "filter_lanes": cuda_filter.LAUNCHES,
             "decode_words": cuda_decode_words.LAUNCHES,
-            "encode_search": cuda_encode.LAUNCHES}
+            "encode_search": cuda_encode.LAUNCHES,
+            "encode_fixpoint": cuda_encode.FIXPOINT_LAUNCHES}
 
 
 def counted(fn, *want):
@@ -3033,11 +3238,12 @@ def dp_main_path(torch, card, corp_src: pathlib.Path,
           seconds=f"{secs:.3f}", note=SERIAL_NOTE)
     out = {"decode_words": got["decode_words"]}
     n_enc = ENCODE_CORPUS[0]
+    # each shard's 16 lanes through the search's fixed point
     res, secs, got = counted(
         lambda: encode_corpus(enc_src, tmp / "mesh_xa", device=card,
-                              mesh=mesh), "encode_search")
+                              mesh=mesh), "encode_fixpoint")
     if (res.converted != n_enc or res.failed
-            or got["encode_search"] != DP_ENTRIES):
+            or got["encode_fixpoint"] != DP_ENTRIES):
         raise AssertionError(f"dp encode corpus: {res.converted}"
                              f" {res.failed} {got}")
     for p in enc_out.glob("*.xa"):
@@ -3046,9 +3252,9 @@ def dp_main_path(torch, card, corp_src: pathlib.Path,
     if _manifest(tmp / "mesh_xa") != _manifest(enc_out):
         raise AssertionError("dp encode corpus: manifest != no mesh")
     phase(4, "dp_encode_corpus_equals_no_mesh", entries=DP_ENTRIES,
-          files=n_enc, encode_search=got["encode_search"],
+          files=n_enc, encode_fixpoint=got["encode_fixpoint"],
           seconds=f"{secs:.3f}", note=SERIAL_NOTE)
-    out["encode_search"] = got["encode_search"]
+    out["encode_fixpoint"] = got["encode_fixpoint"]
     return dict(out, mesh=mesh)
 
 
@@ -3312,6 +3518,18 @@ def main() -> int:
           spill_bytes=enc_ptx["spill_bytes"], cta_threads=ENCODE_CTA_THREADS,
           ctas_per_sm=min(65536 // (regs * ENCODE_CTA_THREADS),
                           2048 // ENCODE_CTA_THREADS))
+    # the search's fixed point: the same body, its CTAs an SM as the
+    # cooperative launch's occupancy query gives them
+    fix_ptx = report["encode_fixpoint"]
+    phase(1, "encode_fixpoint_ptxas", registers=fix_ptx["registers"],
+          spill_bytes=fix_ptx["spill_bytes"],
+          stack_bytes=max(r["stack_bytes"]
+                          for r in fix_ptx["instances"].values()),
+          cta_threads=ENCODE_CTA_THREADS,
+          ctas_per_sm={bits: _build.library().bjxa_encode_fixpoint_occupancy(
+              bits, torch.cuda.current_device()) for bits in (4, 6, 8)})
+    if fix_ptx["spill_bytes"] or max(fix_ptx["registers"]) > 64:
+        raise AssertionError(f"encode_fixpoint spills: {fix_ptx}")
 
     var_ptx = variants_ptxas(_build.library(), report,
                              torch.cuda.current_device())
@@ -3321,6 +3539,8 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     worst = check_kernels(torch, dev, rng)
     worst["encode_search"] = check_encode_kernel(torch, dev, rng)
+    worst["encode_fixpoint"] = check_encode_fixpoint_kernel(
+        torch, dev, np.random.default_rng(SEED + 29))
     # its own stream, so the later phases keep the inputs they had before
     # the words kernel was added
     worst["decode_words"] = check_words_kernel(
@@ -3495,6 +3715,7 @@ def main() -> int:
     corp = corpus_main_path(torch, dev, rng, ctmp)
     enc_corp = encode_corpus_main_path(torch, dev, rng, ctmp)
     worst["encode_search"] = max(worst["encode_search"], enc_corp["err"])
+    fix_shapes = check_encode_fixpoint_shapes(torch, dev, enc, enc_corp)
     meas_launches = measurement_main_path(torch)
     codec_st = streaming_main_path(images, ref, bad, bad_wav, enc)
     # the multi-device layer on meshes that repeat the card, each path
@@ -3572,6 +3793,7 @@ def main() -> int:
           **{k: f"{statistics.median(v):.3f}" for k, v in stages.items()})
 
     enc_ms = encode_timings(torch, dev, gpu, enc)
+    fix_ms = encode_fixpoint_timings(torch, dev, gpu, fix_shapes)
     words_ms, words_corpus = corpus_timings(torch, dev, gpu, corp, enc_corp,
                                             ctmp)
     mesh_ms = mesh_timings(torch, card, gpu, sp_st, dp_st, corp["src"],
@@ -3620,6 +3842,10 @@ def main() -> int:
         "decode_short": bound(23 * 2 * 33 + 23 * 32 * 2 * 2 + 2 * 8 * 2
                               + 23 * 2, 23 * 32 * 2 * DECODE_OPS_PER_SAMPLE),
         "encode_search": encode_bound(eB, eL),
+        # one search of the corpus batch's blocks: the fixed point's
+        # function, whatever rounds it runs
+        "encode_fixpoint": encode_bound(*(
+            fix_shapes["corpus_batch"]["pcm"].shape[i] for i in (0, 2))),
         "decode_words": bound(words_traffic(wB, wL, wbits),
                               wB * 32 * wL * DECODE_OPS_PER_SAMPLE),
     }
@@ -3683,18 +3909,29 @@ def main() -> int:
               xa_to_wav_ms={k: v["ms"] for k, v in
                             short_ms["routes"].items()}),
         entry("encode_search", "bjxa_tpu/ops/pallas_encode.py:52",
-              {"wav_to_xa": enc["launches"],
-               "encode_wav_stream": seg_launches["encode_search"],
-               "encode_corpus": enc_corp["launches"],
-               "Encoder.encode": codec_st["launches"],
+              {"wav_to_xa_short": enc["launches"],
                "bench": meas_launches["encode_search"],
                "encode_file_sharded": sp_st["encode"]["launches"],
-               "encode_corpus_mesh": dp_st["encode_search"],
                "transcode_step": trans["encode_search"]},
               timed("encode_search", enc_ms),
               sp_encode_s=mesh_ms["sp_encode_s"],
               encoder_piece_ms=codec_ms["ms"],
               encoder_piece_plain_ms=codec_ms["plain_ms"]),
+        entry("encode_fixpoint", "bjxa_tpu/ops/pallas_encode.py:52",
+              {"wav_to_xa": enc["fixpoint_launches"],
+               "encode_wav_stream": seg_launches["encode_fixpoint"],
+               "encode_corpus": enc_corp["launches"],
+               "Encoder.encode": codec_st["launches"],
+               "encode_corpus_mesh": dp_st["encode_fixpoint"]},
+              {"ms": fix_ms["corpus_batch"]["ms"],
+               "plain_ms": fix_ms["corpus_batch"]["plain_ms"],
+               "bound_ms": bounds["encode_fixpoint"][0],
+               "bound_by": bounds["encode_fixpoint"][1]},
+              shape="corpus_batch",
+              by_shape={name: {k: r[k] for k in (
+                  "ms", "serial_ms", "host_loop_ms", "bound_ms",
+                  "chain_floor_ms", "rounds", "K", "Bc")}
+                  for name, r in fix_ms.items()}),
         entry("decode_words", "bjxa_tpu/ops/pallas_decode.py:149",
               {"decode_corpus": corp["launches"],
                "bench": meas_launches["decode_words"],

@@ -363,7 +363,7 @@ def test_segmented_bench(tiny_env, monkeypatch, capsys):
 def test_search_unroll_variants_change_the_pragma_alone(unroll):
     """Each variant is the production search source with its sample loop's
     pragma changed, and unroll 1 is the production source itself."""
-    prod = (search_unroll._build.CSRC / "encode_search.cu").read_text()
+    prod = (search_unroll._build.CSRC / "encode_block.cuh").read_text()
     var = search_unroll.variant_source(unroll)
     pragma = "#pragma unroll" + ("" if unroll == 32 else f" {unroll}")
     loop = search_unroll.LOOP

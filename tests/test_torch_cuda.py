@@ -334,6 +334,112 @@ def test_encode_wrapper_rejects_bad_inputs(dev):
         cuda_encode.encode_search_lanes(pcm, state, bits=5)
 
 
+# -- the search's chunk fixed point in one cooperative launch -----------------
+
+
+def _fixpoint_case(B, L, seed, dev):
+    """Sine plus noise a lane at its own pitch, and a random entry state."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(B * 32)[:, None]
+    sig = 14000 * np.sin(t / (4.0 + 0.7 * np.arange(L)))
+    sig = sig + rng.normal(0, 2500, size=(B * 32, L))
+    pcm = np.clip(sig, -32768, 32767).astype(np.int16).reshape(B, 32, L)
+    state = rng.integers(-30000, 30000, size=(L, 2)).astype(np.int32)
+    return torch.from_numpy(pcm).to(dev), torch.from_numpy(state).to(dev)
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("B,L,K", [
+    (101, 2, 6),     # short last chunk (5 x 17 + 16)
+    (101, 33, 7),    # L not a multiple of 32: tiles straddle chunks
+    (101, 2, 33),    # Bc = 4: seven whole chunks of pad
+    (64, 1, 4),      # the first block count that takes K > 1
+    (37, 45, 1),     # K = 1: no round, the pass with output alone
+    (300, 3, 37),    # more tiles than one CTA, a short last chunk
+    (0, 2, 1),       # no blocks
+])
+def test_encode_fixpoint_kernel_matches_plain(dev, bits, B, L, K):
+    """The fixed-point kernel against its plain version (the host loop on
+    the CPU): all four outputs and the round count, one launch."""
+    pcm, state = _fixpoint_case(B, L, seed=bits * 1000 + B + L + K, dev=dev)
+    before = (cuda_encode.LAUNCHES, cuda_encode.FIXPOINT_LAUNCHES)
+    got = cuda_encode.encode_search_fixpoint_lanes(pcm, state, bits=bits,
+                                                   num_chunks=K)
+    assert (cuda_encode.LAUNCHES, cuda_encode.FIXPOINT_LAUNCHES) == (
+        before[0], before[1] + 1)
+    want = cuda_encode.encode_search_fixpoint_lanes_plain(
+        pcm.cpu(), state.cpu(), bits=bits, num_chunks=K)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_encode_fixpoint_kernel_no_lanes(dev):
+    """L = 0: empty outputs, no launch, no round."""
+    pcm = torch.zeros((5, 32, 0), dtype=torch.int16, device=dev)
+    state = torch.zeros((0, 2), dtype=torch.int32, device=dev)
+    before = cuda_encode.FIXPOINT_LAUNCHES
+    prof, coded, recon, end, rounds = (
+        cuda_encode.encode_search_fixpoint_lanes(pcm, state, bits=6,
+                                                 num_chunks=2))
+    assert cuda_encode.FIXPOINT_LAUNCHES == before
+    assert prof.shape == (5, 0) and end.shape == (0, 2)
+    assert rounds.cpu().tolist() == [0]
+
+
+def test_encode_fixpoint_kernel_matches_serial_at_the_corpus_batch(dev):
+    """The encode corpus's batch shape (B = 13,824, L = 32, K = 256): the
+    fixed point's bytes equal the serial kernel's, and its rounds the host
+    loop's on the card (kernel 7 a round, ``run=`` given)."""
+    from bjxa_tpu_torch.ops import encode
+
+    B, L = 13824, 32
+    pcm, _ = _fixpoint_case(B, L, seed=3, dev=dev)
+    state = torch.zeros((L, 2), dtype=torch.int32, device=dev)
+    K = encode.pick_encode_chunks(B, L)
+    assert K == 256
+    got = cuda_encode.encode_search_fixpoint_lanes(pcm, state, bits=6,
+                                                   num_chunks=K)
+    serial = cuda_encode.encode_search_lanes(pcm, state, bits=6)
+    for g, s in zip(got, serial):
+        assert torch.equal(g, s)
+    before = (cuda_encode.LAUNCHES, cuda_encode.FIXPOINT_LAUNCHES)
+    *loop, rounds = encode.encode_search_fixpoint(
+        pcm, state, bits=6, num_chunks=K,
+        run=lambda lanes, st: cuda_encode.encode_search_lanes(lanes, st,
+                                                              bits=6))
+    assert (cuda_encode.LAUNCHES - before[0],
+            cuda_encode.FIXPOINT_LAUNCHES - before[1]) == (rounds, 0)
+    assert int(got[4].item()) == rounds
+    for g, lp in zip(got, loop):
+        assert torch.equal(g, lp)
+
+
+def test_encode_search_fixpoint_routes_by_run(dev):
+    """``encode_search_fixpoint`` on a CUDA tensor: one fixed-point launch
+    without ``run``, the host loop (a serial launch a round) with it; the
+    same outputs and rounds."""
+    from functools import partial
+
+    from bjxa_tpu_torch.ops import encode
+
+    pcm, state = _fixpoint_case(700, 2, seed=4, dev=dev)
+    before = (cuda_encode.LAUNCHES, cuda_encode.FIXPOINT_LAUNCHES)
+    *one, rounds = encode.encode_search_fixpoint(pcm, state, bits=6,
+                                                 num_chunks=43)
+    assert (cuda_encode.LAUNCHES - before[0],
+            cuda_encode.FIXPOINT_LAUNCHES - before[1]) == (0, 1)
+    before = (cuda_encode.LAUNCHES, cuda_encode.FIXPOINT_LAUNCHES)
+    *loop, loop_rounds = encode.encode_search_fixpoint(
+        pcm, state, bits=6, num_chunks=43,
+        run=partial(encode.encode_search, bits=6))
+    assert (cuda_encode.LAUNCHES - before[0],
+            cuda_encode.FIXPOINT_LAUNCHES - before[1]) == (loop_rounds, 0)
+    assert rounds == loop_rounds
+    for a, b in zip(one, loop):
+        assert torch.equal(a, b)
+
+
 def _wav(channels, frames, seed):
     rng = np.random.default_rng(seed)
     t = np.arange(frames)[:, None]
@@ -347,13 +453,15 @@ def _wav(channels, frames, seed):
 @pytest.mark.parametrize("bits", [4, 6, 8])
 @pytest.mark.parametrize("channels", [1, 2])
 def test_wav_to_xa_card_matches_cpu(dev, bits, channels):
-    """A fixpoint-length stream (the kernel runs once per round) and a
-    short one (the sequential search), search and truncation."""
-    for frames in (300 * 32 + 7, 23 * 32 - 5):
+    """A fixpoint-length stream (one launch of the fixed-point kernel) and
+    a short one (one of the sequential search), search and truncation."""
+    for frames, fixpoint in ((300 * 32 + 7, 1), (23 * 32 - 5, 0)):
         wav = _wav(channels, frames, seed=bits * channels + frames)
-        before = cuda_encode.LAUNCHES
+        before = (cuda_encode.LAUNCHES, cuda_encode.FIXPOINT_LAUNCHES)
         got = wav_to_xa(wav, bits, device=dev)
-        assert cuda_encode.LAUNCHES > before
+        assert (cuda_encode.LAUNCHES - before[0],
+                cuda_encode.FIXPOINT_LAUNCHES - before[1]) == (
+                    1 - fixpoint, fixpoint)
         assert got == wav_to_xa(wav, bits, device="cpu")
         assert wav_to_xa(wav, bits, search=False, device=dev) == wav_to_xa(
             wav, bits, search=False, device="cpu"
@@ -736,11 +844,16 @@ def test_encode_corpus_card_matches_cpu(dev, tmp_path):
     for i, (ch, frames) in enumerate([(1, 3000), (2, 2500), (2, 99)]):
         (src / f"w{i}.wav").write_bytes(_wav(ch, frames, seed=i))
     for search in (True, False):
-        before = cuda_encode.LAUNCHES
+        before = (cuda_encode.LAUNCHES, cuda_encode.FIXPOINT_LAUNCHES)
         card = encode_corpus(src, tmp_path / f"card{search}", device=dev,
                              search=search, batch_files=2,
                              bucket_granularity=16)
-        assert (cuda_encode.LAUNCHES > before) == search
+        # batches by channel count: the mono file (96 blocks) and the long
+        # stereo one (80) through the fixed point, the short stereo one (16)
+        # through the sequential search
+        assert (cuda_encode.LAUNCHES - before[0],
+                cuda_encode.FIXPOINT_LAUNCHES - before[1]) == (
+                    search, 2 * search)
         cpu = encode_corpus(src, tmp_path / f"cpu{search}", device="cpu",
                             search=search, batch_files=2,
                             bucket_granularity=16)
@@ -1071,11 +1184,13 @@ def test_segmented_decode_card_failures_match_cpu(dev):
 @pytest.mark.parametrize("search", [True, False])
 def test_segmented_encode_card_matches_whole_file(dev, search):
     wav = _wav(2, 700 * 32 - 13, seed=5)
-    before = cuda_encode.LAUNCHES
+    before = (cuda_encode.LAUNCHES, cuda_encode.FIXPOINT_LAUNCHES)
     out = io.BytesIO()
     encode_wav_stream(io.BytesIO(wav), out, 6, search=search, device=dev,
                       segment_blocks=96)
-    assert (cuda_encode.LAUNCHES > before) == search
+    # 8 segments, each one fixed-point launch (K = 6), none sequential
+    assert (cuda_encode.LAUNCHES - before[0],
+            cuda_encode.FIXPOINT_LAUNCHES - before[1]) == (0, 8 * search)
     assert out.getvalue() == wav_to_xa(wav, 6, search=search, device=dev)
     assert out.getvalue() == wav_to_xa(wav, 6, search=search, device="cpu")
 
