@@ -35,6 +35,7 @@ from bjxa_tpu_torch.ops.encode import (
     encode_stream_blocks,
     iter_encode_segments,
 )
+from bjxa_tpu_torch.utils.profiler import span
 
 
 def decode_xa(
@@ -97,31 +98,35 @@ def encode_pcm(
         raise BjxaInvalidState(f"encode_pcm: bad channel count {channels}")
 
     nblocks = -(-samples // BLOCK_SAMPLES)
-    padded = np.zeros((nblocks * BLOCK_SAMPLES, channels), np.int16)
-    padded[:samples] = pcm
-    lanes = padded.reshape(nblocks, BLOCK_SAMPLES, channels)
+    with span("bjxa.api.pad"):
+        padded = np.zeros((nblocks * BLOCK_SAMPLES, channels), np.int16)
+        padded[:samples] = pcm
+        lanes = padded.reshape(nblocks, BLOCK_SAMPLES, channels)
     if search and use_sp_mesh(mesh, sp_axis) and nblocks >= sp_min_blocks:
         from bjxa_tpu_torch.parallel.sharded import encode_file_sharded
 
-        blocks_np, _end, _rounds = encode_file_sharded(
+        host, _end, _rounds = encode_file_sharded(
             lanes, np.zeros((channels, 2), np.int32), bits=bits, mesh=mesh,
             axis=sp_axis,
         )
-        payload = blocks_np.tobytes()
     else:
-        blocks = encode_stream_blocks(torch.from_numpy(lanes).to(device),
-                                      bits=bits, search=search)
-        payload = blocks.cpu().numpy().tobytes()
+        with span("bjxa.ops.h2d"):
+            lanes = torch.from_numpy(lanes).to(device)
+        blocks = encode_stream_blocks(lanes, bits=bits, search=search)
+        with span("bjxa.ops.readback"):
+            host = blocks.cpu().numpy()
 
-    fmt = XAFormat(
-        data_len=len(payload),
-        samples=samples,
-        samples_rate=samples_rate,
-        bits=bits,
-        channels=channels,
-        initial_state=((0, 0), (0, 0)),
-    ).validate()
-    return dump_xa_header(fmt) + payload
+    with span("bjxa.api.assemble"):
+        payload = host.tobytes()
+        fmt = XAFormat(
+            data_len=len(payload),
+            samples=samples,
+            samples_rate=samples_rate,
+            bits=bits,
+            channels=channels,
+            initial_state=((0, 0), (0, 0)),
+        ).validate()
+        return dump_xa_header(fmt) + payload
 
 
 def decode_xa_stream(
@@ -211,10 +216,18 @@ def wav_to_xa(
     device: torch.device | str,
 ) -> bytes:
     """Convert a whole WAVE file image to an XA file image, encoding on
-    ``device``."""
-    rf = parse_riff_header(data)
-    body = memoryview(data)[RIFF_HEADER_SIZE:]
-    if len(body) < rf.data_len_pcm:
-        raise BjxaIOError("WAVE stream truncated")
-    pcm = load_pcm(body[: rf.data_len_pcm], rf.channels)
-    return encode_pcm(pcm, rf.samples_rate, bits, search=search, device=device)
+    ``device``.
+
+    Under a ``torch.profiler`` session each call is the span
+    ``bjxa.api.wav_to_xa`` around the spans of its stages
+    (:func:`bjxa_tpu_torch.utils.profiler.span`)."""
+    with span("bjxa.api.wav_to_xa"):
+        with span("bjxa.format.parse_riff"):
+            rf = parse_riff_header(data)
+            body = memoryview(data)[RIFF_HEADER_SIZE:]
+            if len(body) < rf.data_len_pcm:
+                raise BjxaIOError("WAVE stream truncated")
+        with span("bjxa.format.load_pcm"):
+            pcm = load_pcm(body[: rf.data_len_pcm], rf.channels)
+        return encode_pcm(pcm, rf.samples_rate, bits, search=search,
+                          device=device)

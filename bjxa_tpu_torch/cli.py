@@ -114,7 +114,8 @@ Available actions:
     BJXA_NUM_PROCESSES / BJXA_PROCESS_ID) shard the file
     list across cooperating processes; the summary line
     reports cross-host totals. --trace <dir> captures a
-    torch.profiler trace; --stats prints throughput rates.
+    torch.profiler trace with the program's bjxa.* stage
+    ranges; --stats prints throughput rates.
     Runs on the CUDA device; BJXA_PLATFORM=cpu runs on
     the CPU instead.
 """

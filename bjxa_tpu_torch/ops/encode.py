@@ -39,6 +39,7 @@ import torch
 from bjxa_tpu_torch.errors import BjxaInvalidState
 from bjxa_tpu_torch.ops.deflate import deflate_blocks
 from bjxa_tpu_torch.ops.tables import NUM_FACTORS, NUM_RANGES
+from bjxa_tpu_torch.utils.profiler import span
 
 NUM_CANDIDATES = NUM_FACTORS * NUM_RANGES  # 80
 
@@ -213,8 +214,22 @@ def pick_encode_chunks(nblocks: int, channels: int) -> int:
     return max(min(k, nblocks // 16), 1)
 
 
+class SearchOut(tuple):
+    """What :func:`encode_search_auto` returns: its four outputs, as a
+    tuple, and ``rounds``, the fixed point's (a one-element ``int32``
+    tensor on the device from
+    :func:`~bjxa_tpu_torch.ops.cuda_encode.encode_search_fixpoint_lanes`,
+    not synced; an int from the host loop of ``run``; 1 on the sequential
+    route)."""
+
+    def __new__(cls, outputs, rounds):
+        self = super().__new__(cls, outputs)
+        self.rounds = rounds
+        return self
+
+
 def encode_search_auto(pcm: torch.Tensor, state: torch.Tensor, *, bits: int,
-                       run=None):
+                       run=None) -> SearchOut:
     """The profile search of ``pcm`` int-like ``[B, 32, L]`` from ``state``
     ``int32[L, 2]``, as every encode path takes it: the fixed point at
     :func:`pick_encode_chunks` ``(B, L)`` chunks when that gives K > 1
@@ -226,23 +241,26 @@ def encode_search_auto(pcm: torch.Tensor, state: torch.Tensor, *, bits: int,
 
     Returns ``(profiles int32[B, L], coded int16[B, 32, L],
     recon int16[B, 32, L], end int32[L, 2])`` on ``pcm``'s device, ``end``
-    the state after block B - 1.
+    the state after block B - 1, as a :class:`SearchOut`.
     """
     B, _, L = pcm.shape
     K = pick_encode_chunks(B, L)
     if K == 1:
-        return (run or partial(encode_search, bits=bits))(pcm, state)
+        return SearchOut((run or partial(encode_search, bits=bits))(
+            pcm, state), 1)
     if run is None:
         from bjxa_tpu_torch.ops.cuda_encode import (
             encode_search_fixpoint_lanes,
         )
 
-        return encode_search_fixpoint_lanes(
+        *out, rounds = encode_search_fixpoint_lanes(
             pcm.to(torch.int16).contiguous(),
             state.to(torch.int32).contiguous(), bits=bits, num_chunks=K,
-        )[:4]
-    return encode_search_fixpoint(pcm, state, bits=bits, num_chunks=K,
-                                  run=run)[:4]
+        )
+    else:
+        *out, rounds = encode_search_fixpoint(pcm, state, bits=bits,
+                                              num_chunks=K, run=run)
+    return SearchOut(out, rounds)
 
 
 def encode_stream_blocks(
@@ -254,20 +272,27 @@ def encode_stream_blocks(
     device that does the work.  ``search`` picks the profile search
     (through the fixed point when :func:`pick_encode_chunks` gives K > 1)
     or truncation; ``run`` replaces the per-round search as in
-    :func:`encode_search_fixpoint`.
+    :func:`encode_search_fixpoint`.  Under a ``torch.profiler`` session
+    the search is the span ``bjxa.ops.search`` (with the fixed point's
+    ``rounds``) and the packing ``bjxa.ops.deflate``.
 
     Returns ``uint8[B, C, block_size]`` on ``pcm``'s device: channel-major
     inside each effective block, the file layout.
     """
     C = pcm.shape[2]
-    state = torch.zeros((C, 2), dtype=torch.int32, device=pcm.device)
     if search:
-        profiles, coded, _recon, _end = encode_search_auto(
-            pcm, state, bits=bits, run=run)
+        with span("bjxa.ops.search") as sp:
+            state = torch.zeros((C, 2), dtype=torch.int32, device=pcm.device)
+            found = encode_search_auto(pcm, state, bits=bits, run=run)
+            if sp:
+                sp.set(rounds=found.rounds)
+        profiles, coded, _recon, _end = found
+        del found  # untraced, the scratch that rounds views is freed here
     else:
         profiles, coded = encode_truncate(pcm)
-    # [B, 32, C] -> [B, C, 32] so packed bytes land channel-major
-    return deflate_blocks(profiles, coded.transpose(1, 2), bits)
+    with span("bjxa.ops.deflate"):
+        # [B, 32, C] -> [B, C, 32] so packed bytes land channel-major
+        return deflate_blocks(profiles, coded.transpose(1, 2), bits)
 
 
 def encode_batch_blocks(pcm: torch.Tensor, *, bits: int,
