@@ -26,8 +26,10 @@ its public entry points, on seeded random inputs with valid profiles:
   search's fixed point, 6-bit; eager windows;
 * where the checkout has it, the search's fixed point in one launch
   (``cuda_encode.encode_search_fixpoint_lanes``) at a corpus batch (B =
-  13,824, L = 32), a streaming ``Encoder`` call (B = 4,096, L = 2) and the
-  5-minute stream (B = 413,438, L = 2), with its rounds, on seeded audio-like
+  13,824, L = 32), a streaming ``Encoder`` call (B = 4,096, L = 2), the
+  5-minute stream (B = 413,438, L = 2) and a 15 s file, mono and stereo (B
+  = 20,672, L = 1 and 2, K = 1,292), with its rounds (and the items its
+  rounds searched, where the checkout counts them), on seeded audio-like
   PCM (two sines a lane and noise), beside the serial kernel at the first
   two;
 * ``xa_to_wav`` of a 23-block stereo 8-bit stream, host clock,
@@ -336,17 +338,21 @@ def main(argv=None) -> int:
     fixpoint = getattr(cuda_encode, "encode_search_fixpoint_lanes", None)
     for label, (B, L, K) in (("corpus_batch", (13_824, 32, 256)),
                              ("encoder_call", (4096, 2, 256)),
-                             ("5min", (413_438, 2, 4096))):
+                             ("5min", (413_438, 2, 4096)),
+                             ("file_mono", (20_672, 1, 1292)),
+                             ("file_stereo", (20_672, 2, 1292))):
         pcm = audio_pcm(rng, B, L).to(dev)
         zeros = torch.zeros((L, 2), dtype=torch.int32, device=dev)
-        if label != "5min":
+        if label in ("corpus_batch", "encoder_call"):
             timed(f"search_{label}", lambda: cuda_encode.encode_search_lanes(
                 pcm, zeros, bits=6), inner=1)
         if fixpoint is not None:
             timed(f"fixpoint_{label}", lambda: fixpoint(
                 pcm, zeros, bits=6, num_chunks=K), inner=1)
-            out[f"fixpoint_{label}_rounds"] = int(fixpoint(
-                pcm, zeros, bits=6, num_chunks=K)[4].item())
+            got = fixpoint(pcm, zeros, bits=6, num_chunks=K)
+            out[f"fixpoint_{label}_rounds"] = int(got[4].item())
+            if hasattr(got, "searched"):
+                out[f"fixpoint_{label}_searched"] = int(got.searched.item())
 
     xa = short_xa(pkg, rng)
     want = pkg.xa_to_wav(xa, device="cpu")

@@ -3,7 +3,8 @@
 // scopes: the grid of a cooperative launch (decode_words.cu and its
 // ablations decode_variants.cu and loadstore_bound.cu, decode_stream.cu) or
 // one CTA (filter_lanes.cu's short-stream decode); and the same schedule
-// with a CTA, not a thread, per work item (chunk_fixpoint_tiles, the search
+// with a CTA, not a thread, per work item, whose rounds after the first run
+// only the items whose start moved (chunk_fixpoint_tiles, the search
 // encode's encode_fixpoint.cu).
 //
 // Each of `lanes` lanes has B blocks, cut into K chunks of Bc blocks (the
@@ -171,98 +172,194 @@ __device__ __forceinline__ void chunk_fixpoint(
                                  Bc, run);
 }
 
-// Work items a tile of chunk_fixpoint_tiles holds.
-constexpr int kTileItems = 32;
+// Most SM ids (%nsmid) chunk_fixpoint_tiles deals its tiles by.
+constexpr int kMaxSmIds = 256;
+
+// The SM this thread runs on (%smid), and the bound of SM ids (%nsmid).
+__device__ __forceinline__ int sm_id() {
+  unsigned id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return static_cast<int>(id);
+}
+__device__ __forceinline__ int sm_ids() {
+  unsigned n;
+  asm("mov.u32 %0, %%nsmid;" : "=r"(n));
+  return static_cast<int>(n);
+}
 
 // The schedule of chunk_fixpoint over the grid of a cooperative launch with
-// a CTA, not a thread, per work item: tile j holds items j*32 .. j*32 + 31
-// (the last tile may be ragged), tiles are strided over the persistent
-// grid, and all threads of a CTA call run(Output<W>{}, i, p0, p1) for their
-// tile together, so run may hold CTA barriers.  i = j*32 + threadIdx.x % 32
-// is the thread's item (K*lanes or more in a ragged tile's dead slots);
-// threads 0-31 hand the item's start in (p0, p1) and take its end state
-// back there, the others' (p0, p1) are zeros and ignored.  run writes the
-// output and `end` itself: this form solves the starts and counts the
-// rounds (scratch as in GridScope, the count to scratch[2]).  Every tile
-// runs to the same end in every round, so every thread reaches every
-// grid.sync().  A run of a CTA-wide search leaves no register to spare, so
-// nothing of this loop stays in one across run: the CTA's tile index and
-// the solved starts' parity live in shared memory (read back after run's
-// barriers), and indices are 32-bit (4*K*lanes + 4 < 2^31, the caller's
-// check; a 64-bit division is a call).
-template <bool WITH_OUTPUT, class Run>
+// a CTA, not a thread, per work item, W items a tile (W divides 32), and
+// each round after the first over the items whose start moved alone.
+//
+// All threads of a CTA call run(Output<O>{}, i, p0, p1) for their tile
+// together, so run may hold CTA barriers: i is the item of the thread's
+// slot, threadIdx.x % W (K*lanes for a slot with no item); threads 0..W-1
+// hand the item's start in (p0, p1) and take its end state back there, the
+// others' (p0, p1) are zeros and ignored.  run writes the output and `end`
+// itself: this form solves the starts and counts the rounds.
+//
+// Round 1 runs every item from the guess (chunk 0 at state, the others at
+// zeros), in tiles j*W .. j*W + W-1.  Round r >= 2 runs only the items live
+// in it, those whose start changed in round r - 1.  Any other item would
+// give the end it gave when it last ran, which is already its successor's
+// start, so it has nothing to search and nothing to write; the round count,
+// the stop rule and every output are the schedule's without the skip.  The
+// live items of round r are a list of (item, p0, p1) at parity r & 1 of
+// `lists`, which round r - 1 appended to (one atomicAdd a tile onto
+// counts[r], zeroed at the start and never reset), so round r's tiles are
+// the list's dense slices of W items, tile t to the CTA of place t, t +
+// grid, ... in the dealing order: CTAs sorted by their rank among their SM's
+// CTAs, then by SM, so a round of n tiles puts them on n SMs where the grid
+// spans as many (the hardware places consecutive CTAs on the same few SMs:
+// CTAs 0-23 of 323 on 8 SMs of an H100).  starts[j] is chunk j's start as
+// last set; only the holder of item j - lanes reads it (to compare its new
+// end) and writes it, and the list carries the start to item j, so no item
+// reads what another writes in the same round.  The loop stops when a round
+// appends nothing or after K rounds; then one pass with output over every
+// item from the solved starts.
+//
+// Scratch, int32: [2] the round count, [3] the items the states-only rounds
+// searched (0 when K = 1), then counts[K + 2], starts[K*lanes][2],
+// lists[2][K*lanes][3] and each CTA's SM id (4 elements are enough when K =
+// 1, which deals no round).  Every tile of a round runs to the same end, so
+// every thread reaches every grid.sync().  A run of a CTA-wide search leaves
+// no register to spare, so little of this loop stays in one across run: the
+// CTA's tile, place and the round's live count live in shared memory (read
+// back after run's barriers), and indices are 32-bit (8*K*lanes + K +
+// grid + 6 < 2^31, the caller's check; a 64-bit division is a call).
+template <int W, bool WITH_OUTPUT, class Run>
 __device__ __forceinline__ void chunk_fixpoint_tiles(
     const int32_t* __restrict__ state, int32_t* scratch, int lanes, int K,
     Run run) {
+  static_assert(W <= 32 && 32 % W == 0, "warp 0 holds a tile's items");
   __shared__ int tile;  // the tile this CTA runs
-  __shared__ int solved;  // the parity of the solved starts
+  __shared__ int live;  // the items the round runs
+  __shared__ int place;  // this CTA's place in the dealing order
+  __shared__ int rank;  // its rank among its SM's CTAs
+  __shared__ int sm_ctas[kMaxSmIds];  // the grid's CTAs on each SM
   const GridScope grid{scratch};
   const int items = K * lanes;
-  const int tiles = (items + kTileItems - 1) / kTileItems;
+  int32_t* counts = scratch + 4;  // counts[r]: round r's live items, r >= 2
+  int32_t* starts = counts + K + 2;
+  int32_t* lists = starts + 2 * items;  // round r's at (r & 1) * 3 * items
+  int32_t* sm_of = lists + 6 * items;  // each CTA's SM
   // every thread has read `tile` before thread 0 moves it on
   auto next_tile = [&](int j) {
     __syncthreads();
     if (threadIdx.x == 0) tile = j;
     __syncthreads();
   };
+  // the item of this thread's slot in round r (items for none)
+  auto item_of = [&](int r) {
+    const int e = tile * W + static_cast<int>(threadIdx.x) % W;
+    if (e >= live) return items;
+    return r == 1 ? e : grid.load(lists + (r & 1) * 3 * items + 3 * e);
+  };
   int done = 0;  // rounds run
   if (K > 1) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
-      grid.ctrl()[0] = 0;
-      grid.ctrl()[1] = 0;
-    }
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < items;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < items + K + 2;
          i += gridDim.x * blockDim.x) {
-      const bool anchor = i < lanes;
-      grid.starts()[2 * i] = anchor ? state[2 * i] : 0;
-      grid.starts()[2 * i + 1] = anchor ? state[2 * i + 1] : 0;
+      if (i < items) {
+        starts[2 * i] = 0;
+        starts[2 * i + 1] = 0;
+      } else {
+        counts[i - items] = 0;
+      }
     }
+    if (threadIdx.x == 0) sm_of[blockIdx.x] = sm_id();
     grid.sync();
+    // the dealing order: the CTAs of lower rank, then those of this rank on
+    // lower SM ids
+    const int ids = sm_ids();
+    if (ids <= kMaxSmIds) {
+      for (int m = threadIdx.x; m < ids; m += blockDim.x) sm_ctas[m] = 0;
+      if (threadIdx.x == 0) {
+        place = 0;
+        rank = 0;
+      }
+      __syncthreads();
+      // this CTA's SM as every CTA read it: %smid may change while a CTA
+      // runs (after a preemption), and a second read could then break the
+      // places' permutation of 0 .. grid - 1; the SM order is for speed alone
+      const int mine = grid.load(sm_of + blockIdx.x);
+      int before = 0;
+      for (int b = threadIdx.x; b < static_cast<int>(gridDim.x);
+           b += blockDim.x) {
+        const int m = grid.load(sm_of + b);
+        atomicAdd(&sm_ctas[m], 1);
+        before += b < static_cast<int>(blockIdx.x) && m == mine;
+      }
+      atomicAdd(&rank, before);
+      __syncthreads();
+      int ahead = 0;
+      for (int m = threadIdx.x; m < ids; m += blockDim.x) {
+        ahead += min(sm_ctas[m], rank) + (m < mine && sm_ctas[m] > rank);
+      }
+      atomicAdd(&place, ahead);
+    } else if (threadIdx.x == 0) {
+      place = blockIdx.x;
+    }
+    __syncthreads();
     for (bool moved = true; moved && done < K;) {
-      for (next_tile(blockIdx.x); tile < tiles;
-           next_tile(tile + gridDim.x)) {
-        const int parity = done & 1;
-        const int i = tile * kTileItems + threadIdx.x % kTileItems;
-        const bool mine = threadIdx.x < kTileItems && i < items;
-        const int32_t* from = grid.starts() + parity * 2 * items;
-        int32_t p0 = mine ? grid.load(from + 2 * i) : 0;
-        int32_t p1 = mine ? grid.load(from + 2 * i + 1) : 0;
-        if (mine && i < lanes) {  // chunk 0 stays anchored
-          int32_t* to = grid.starts() + (parity ^ 1) * 2 * items;
-          to[2 * i] = p0;
-          to[2 * i + 1] = p1;
+      const int r = done + 1;
+      if (threadIdx.x == 0) live = r == 1 ? items : grid.load(counts + r);
+      for (next_tile(place); tile * W < live; next_tile(tile + gridDim.x)) {
+        const int i = item_of(r);
+        int32_t p0 = 0;
+        int32_t p1 = 0;
+        if (threadIdx.x < W && i < items) {
+          if (r == 1) {  // chunk 0 at the entry state, the others at zeros
+            p0 = i < lanes ? state[2 * i] : 0;
+            p1 = i < lanes ? state[2 * i + 1] : 0;
+          } else {
+            const int e = tile * W + threadIdx.x;
+            p0 = grid.load(lists + (r & 1) * 3 * items + 3 * e + 1);
+            p1 = grid.load(lists + (r & 1) * 3 * items + 3 * e + 2);
+          }
         }
         run(Output<false>{}, i, p0, p1);
-        // the next chunk's item
-        const int n = tile * kTileItems + threadIdx.x % kTileItems + lanes;
-        if (threadIdx.x < kTileItems && n < items) {
-          const int32_t* was = grid.starts() + parity * 2 * items;
-          int32_t* to = grid.starts() + (parity ^ 1) * 2 * items;
-          if (grid.load(was + 2 * n) != p0 ||
-              grid.load(was + 2 * n + 1) != p1) {
-            grid.ctrl()[parity] = done + 1;
+        // warp 0: the next chunk's start, and its place in round r + 1
+        if (threadIdx.x < 32) {
+          const int from = threadIdx.x < W ? item_of(r) + lanes : items;
+          const bool moved_on =
+              from < items && (grid.load(starts + 2 * from) != p0 ||
+                               grid.load(starts + 2 * from + 1) != p1);
+          const unsigned ballot = __ballot_sync(0xffffffffu, moved_on);
+          int at = 0;
+          if (threadIdx.x == 0 && ballot != 0) {
+            at = atomicAdd(counts + r + 1, __popc(ballot));
           }
-          to[2 * n] = p0;
-          to[2 * n + 1] = p1;
+          at = __shfl_sync(0xffffffffu, at, 0) +
+               __popc(ballot & ((1u << threadIdx.x) - 1u));
+          if (moved_on) {
+            starts[2 * from] = p0;
+            starts[2 * from + 1] = p1;
+            int32_t* to = lists + ((r + 1) & 1) * 3 * items + 3 * at;
+            to[0] = from;
+            to[1] = p0;
+            to[2] = p1;
+          }
         }
       }
       grid.sync();
-      done += 1;
-      moved = grid.load(grid.ctrl() + ((done - 1) & 1)) == done;
+      done = r;
+      moved = grid.load(counts + r + 1) > 0;
     }
   }
-  if (threadIdx.x == 0) {
-    solved = done & 1;
-    if (blockIdx.x == 0) grid.finish(done);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    int searched = K > 1 ? items : 0;
+    for (int r = 2; r <= done; ++r) searched += grid.load(counts + r);
+    grid.finish(done);
+    scratch[3] = searched;
   }
-  for (next_tile(blockIdx.x); tile < tiles; next_tile(tile + gridDim.x)) {
-    const int i = tile * kTileItems + threadIdx.x % kTileItems;
-    const int32_t* from = grid.starts() + solved * 2 * items;
+  if (threadIdx.x == 0) live = items;
+  for (next_tile(blockIdx.x); tile * W < items; next_tile(tile + gridDim.x)) {
+    const int i = item_of(1);
     int32_t p0 = 0;
     int32_t p1 = 0;
-    if (threadIdx.x < kTileItems && i < items) {  // K = 1: item i is lane i
-      p0 = K > 1 ? grid.load(from + 2 * i) : state[2 * i];
-      p1 = K > 1 ? grid.load(from + 2 * i + 1) : state[2 * i + 1];
+    if (threadIdx.x < W && i < items) {  // K = 1: item i is lane i
+      p0 = i < lanes ? state[2 * i] : grid.load(starts + 2 * i);
+      p1 = i < lanes ? state[2 * i + 1] : grid.load(starts + 2 * i + 1);
     }
     run(Output<WITH_OUTPUT>{}, i, p0, p1);
   }

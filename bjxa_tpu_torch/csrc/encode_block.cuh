@@ -63,6 +63,20 @@
 //   zeros and store nothing.  No thread returns early: every thread reaches
 //   every barrier.
 //
+// Narrow tiles (the fixed point's, encode_fixpoint.cu, search_chain_narrow):
+// the same search over W < 32 chains, with two threads for each (chain,
+// range), one running factors 0-2 and one factors 3-4, so a CTA is 32*W
+// threads, W warps.  A warp then holds 32/W ranges, so the range cannot be
+// an immediate: its shift, bias and bounds are run-time values, one formula
+// for both cases (step_q), while the factors' gains stay immediates.  The
+// factor halves are warp-uniform, and at W = 8 each of an SM's four
+// schedulers gets a warp of each (5 steps a sample between them, as one
+// warp of a 32-wide tile), so a tile alone keeps two warps a scheduler in
+// flight.  A warp takes the best of its (half, range) pairs by shuffles,
+// and thread t < W the best of the W warps' winners, lexicographically on
+// (err, profile) as everywhere.  The serial kernel's body, search_chain and
+// the W = 32 instantiations below, is the one it always was.
+//
 // Exactness hazards handled here:
 // * FMA contraction: nvcc fuses err + e*e into one FFMA by default, which
 //   rounds once where every reference rounds twice (and so can rank a
@@ -72,6 +86,8 @@
 //   of a signed value goes through uint32_t (shl below).
 #pragma once
 
+#include <type_traits>
+
 #include "adpcm.cuh"
 
 namespace bjxa {
@@ -80,6 +96,15 @@ constexpr int kLanes = 32;  // chains of a CTA: one per thread of a warp
 constexpr int kFactors = 5;
 constexpr int kRanges = 16;  // one warp per range
 constexpr int kEncodeThreads = kLanes * kRanges;
+
+// Threads of a search CTA over W chains: a warp a range at 32 chains, two
+// threads a (chain, range) below.
+template <int W>
+constexpr int kTileThreads = W == kLanes ? kEncodeThreads : 2 * kRanges * W;
+// Winners a chain's reduction takes from shared memory: a range's at 32
+// chains, a warp's below.
+template <int W>
+constexpr int kWinners = W == kLanes ? kRanges : kTileThreads<W> / kLanes;
 
 // Fixed-point (x256) gains as compile-time constants (ops/tables.py).
 template <int F>
@@ -135,16 +160,22 @@ struct Winner {
   int32_t p1;
 };
 
-// What a search CTA keeps in shared memory.
-struct SearchShared {
-  int32_t tile[kBlockSamples][kLanes];  // the block's targets
-  float win_err[kRanges][kLanes];       // the per-range winners
-  int32_t win_prof[kRanges][kLanes];
-  int32_t win_p0[kRanges][kLanes];
-  int32_t win_p1[kRanges][kLanes];
-  int32_t carry[2][kLanes];  // each chain's state for the next block
-  int32_t entry[2][kLanes];  // each chain's state before its first block
+// What a search CTA of W chains keeps in shared memory.  A narrow tile keeps
+// its targets as int16 (its global load feeds the store as it is).
+template <int W>
+struct TileShared {
+  std::conditional_t<W == kLanes, int32_t, int16_t>
+      tile[kBlockSamples][W];  // the block's targets
+  float win_err[kWinners<W>][W];   // the per-range (per-warp) winners
+  int32_t win_prof[kWinners<W>][W];
+  int32_t win_p0[kWinners<W>][W];
+  int32_t win_p1[kWinners<W>][W];
+  int32_t carry[2][W];  // each chain's state for the next block
+  int32_t entry[2][W];  // each chain's state before its first block
 };
+
+// What a CTA of 32 chains, a warp a range, keeps.
+using SearchShared = TileShared<kLanes>;
 
 // The 5 factors of range R for chain t of the tile, from state (p0, p1), as
 // 5 interleaved chains; ties keep the lower factor.
@@ -188,9 +219,85 @@ __device__ __forceinline__ Winner search_warp(
   return search_range<BITS, R>(tile, t, p0, p1);
 }
 
-// Warp 0's lexicographic (err, profile) minimum over the 16 ranges' winners
-// of chain t: the profile, and the winner's end state in (p0, p1).
-__device__ __forceinline__ int32_t best_of_ranges(const SearchShared& sh,
+// One sample of candidate (F, r) for a range r known at run time: step's
+// arithmetic with the quantizer's shift `down`, bias and bounds [lo, hi] in
+// registers.  Range r <= 16-BITS gives down = 16-BITS-r, bias = half its
+// step and the full bounds, which is step's down case; a higher range gives
+// down = 0, bias = 0 and the bounds shifted down by r-16+BITS, where the
+// formula is step's clip(diff, lo, hi) of the up case.  The same values in
+// fewer instructions, each on the recurrence's chain but the last: the
+// truncating /256 adds 255 to a negative sum as the top byte of its sign
+// (one LEA.HI), the clips are min(max()) (two VIMNMX where lo <= hi, not a
+// compare and a select), and the error is converted without I2F, which
+// issues at a quarter of the rate: 0x4B400000 is 1.5 * 2^23 as a float, so
+// its bits plus an integer |d| < 2^22 are 1.5 * 2^23 + d exactly, and
+// subtracting 1.5 * 2^23 leaves d as a float (|x - recon| < 2^17).
+template <int F>
+__device__ __forceinline__ void step_q(int32_t x, int down, int32_t bias,
+                                       int32_t lo, int32_t hi, int32_t& a0,
+                                       int32_t& a1, float& err) {
+  const int32_t g = a0 * kGainK0<F> + a1 * kGainK1<F>;
+  const int32_t pred =
+      (g + static_cast<int32_t>(static_cast<uint32_t>(g >> 31) >> 24)) >> 8;
+  const int32_t diff = x - pred;
+  const int32_t delta = shl(min(max((diff + bias) >> down, lo), hi), down);
+  const int32_t recon = min(max(delta + pred, -32768), 32767);
+  const float e =
+      __fsub_rn(__int_as_float(0x4B400000 + (x - recon)), 12582912.0f);
+  err = __fadd_rn(err, __fmul_rn(e, e));  // two roundings, never an FFMA
+  a1 = a0;
+  a0 = recon;
+}
+
+// search_range<BITS, R> for a range r known at run time, over factors F0
+// .. F0 + NF - 1 (a narrow tile's half): NF interleaved chains for chain t
+// of the tile from state (p0, p1); ties keep the lower factor.  All of a
+// narrow tile's warps run this one stream, so its sample loop is unrolled
+// four times (the 32-wide body's 16 streams are not: there the instruction
+// cache decides); the loop's own instructions and the (a0, a1) moves are
+// what that saves.
+template <int BITS, int F0, int NF, int W, class T>
+__device__ __forceinline__ Winner search_range_q(
+    const T (&tile)[kBlockSamples][W], int t, int r, int32_t p0,
+    int32_t p1) {
+  constexpr int kShq = 16 - BITS;
+  const int down = r <= kShq ? kShq - r : 0;
+  const int up = r <= kShq ? 0 : r - kShq;
+  const int32_t bias = (1 << down) >> 1;
+  const int32_t lo = -(1 << (BITS - 1)) >> up;
+  const int32_t hi = ((1 << (BITS - 1)) - 1) >> up;
+  int32_t a0[NF], a1[NF];
+  float err[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    a0[f] = p0;
+    a1[f] = p1;
+    err[f] = 0.0f;
+  }
+#pragma unroll 4
+  for (int n = 0; n < kBlockSamples; ++n) {
+    const int32_t target = tile[n][t];
+    step_q<F0>(target, down, bias, lo, hi, a0[0], a1[0], err[0]);
+    step_q<F0 + 1>(target, down, bias, lo, hi, a0[1], a1[1], err[1]);
+    if constexpr (NF > 2) {
+      step_q<F0 + 2>(target, down, bias, lo, hi, a0[2], a1[2], err[2]);
+    }
+  }
+  Winner best{err[0], (F0 << 4) | r, a0[0], a1[0]};
+#pragma unroll
+  for (int f = 1; f < NF; ++f) {
+    if (err[f] < best.err) {
+      best = Winner{err[f], ((F0 + f) << 4) | r, a0[f], a1[f]};
+    }
+  }
+  return best;
+}
+
+// Threads 0..W-1's lexicographic (err, profile) minimum over the winners
+// of chain t in shared memory (the 16 ranges', or the W warps' of a narrow
+// tile): the profile, and the winner's end state in (p0, p1).
+template <int W>
+__device__ __forceinline__ int32_t best_of_ranges(const TileShared<W>& sh,
                                                   int t, int32_t& p0,
                                                   int32_t& p1) {
   float best_err = sh.win_err[0][t];
@@ -198,7 +305,7 @@ __device__ __forceinline__ int32_t best_of_ranges(const SearchShared& sh,
   p0 = sh.win_p0[0][t];
   p1 = sh.win_p1[0][t];
 #pragma unroll
-  for (int r = 1; r < kRanges; ++r) {
+  for (int r = 1; r < kWinners<W>; ++r) {
     const float e = sh.win_err[r][t];
     const int32_t prof = sh.win_prof[r][t];
     if (e < best_err || (e == best_err && prof < best_prof)) {
@@ -279,6 +386,82 @@ __device__ __forceinline__ void search_chain(
   }
 }
 
+// search_chain for a narrow tile of W < 32 chains (a CTA of 32*W threads):
+// thread (t, s) = (tid % W, tid / W) stages sample s of chain t's block and
+// searches range s % 16 of it, factors 0-2 where s < 16, 3-4 otherwise;
+// the same contract, threads t < W in warp 0's place.
+template <int BITS, bool WRITE, int W>
+__device__ __forceinline__ void search_chain_narrow(
+    TileShared<W>& sh, const int16_t* __restrict__ pcm,
+    int32_t* __restrict__ profiles, int16_t* __restrict__ recon_out,
+    size_t first, int prow, int L, int n, int real, int32_t& p0,
+    int32_t& p1) {
+  static_assert(W < kLanes && kLanes % W == 0, "a warp holds whole chains");
+  const int t = threadIdx.x % W;
+  const int s = threadIdx.x / W;
+  const size_t lanes = static_cast<size_t>(L);
+  if (threadIdx.x < W) {
+    sh.carry[0][t] = p0;
+    sh.carry[1][t] = p1;
+    if constexpr (WRITE) {
+      sh.entry[0][t] = p0;
+      sh.entry[1][t] = p1;
+    }
+  }
+  int16_t x = real > 0 ? pcm[first + s * lanes] : 0;
+  for (int j = 0; j < n; ++j) {
+    // every read of the previous tile, carry and winners came before the
+    // last barrier
+    sh.tile[s][t] = x;
+    __syncthreads();
+    x = 0;
+    if (j + 1 < real) {
+      x = pcm[first + (static_cast<size_t>(j + 1) * kBlockSamples + s) *
+                          lanes];
+    }
+    const int r = s % kRanges;
+    Winner mine =
+        s < kRanges
+            ? search_range_q<BITS, 0, 3>(sh.tile, t, r, sh.carry[0][t],
+                                         sh.carry[1][t])
+            : search_range_q<BITS, 3, 2>(sh.tile, t, r, sh.carry[0][t],
+                                         sh.carry[1][t]);
+    // the warp's best of its (half, range) pairs of chain t
+#pragma unroll
+    for (int m = W; m < kLanes; m *= 2) {
+      const float e = __shfl_xor_sync(0xffffffffu, mine.err, m);
+      const int32_t prof = __shfl_xor_sync(0xffffffffu, mine.prof, m);
+      const int32_t q0 = __shfl_xor_sync(0xffffffffu, mine.p0, m);
+      const int32_t q1 = __shfl_xor_sync(0xffffffffu, mine.p1, m);
+      if (e < mine.err || (e == mine.err && prof < mine.prof)) {
+        mine = Winner{e, prof, q0, q1};
+      }
+    }
+    const int warp = threadIdx.x / kLanes;
+    if (threadIdx.x % kLanes < W) {
+      sh.win_err[warp][t] = mine.err;
+      sh.win_prof[warp][t] = mine.prof;
+      sh.win_p0[warp][t] = mine.p0;
+      sh.win_p1[warp][t] = mine.p1;
+    }
+    __syncthreads();
+    if (threadIdx.x < W) {
+      const int32_t prof = best_of_ranges(sh, t, p0, p1);
+      sh.carry[0][t] = p0;
+      sh.carry[1][t] = p1;
+      if (WRITE && j < real) {
+        const size_t row =
+            first + static_cast<size_t>(j) * kBlockSamples * lanes;
+        profiles[prow + j * L] = prof;
+        recon_out[row + (kBlockSamples - 2) * lanes] =
+            static_cast<int16_t>(p1);
+        recon_out[row + (kBlockSamples - 1) * lanes] =
+            static_cast<int16_t>(p0);
+      }
+    }
+  }
+}
+
 // Re-run the winning profile `prof` of the block at `row` (its sample 0 of
 // its lane) from its entry state (p0, p1), and write coded rows 0-31 and
 // recon rows 0-29 (run-time shifts and gains).
@@ -317,17 +500,18 @@ __device__ __forceinline__ void emit_block(
 }
 
 // The winners' re-runs of the real blocks of each thread's chain (first,
-// prow) after search_chain<BITS, true> and a barrier: warp w takes blocks
-// w, w + 16, ... of it; the first enters from sh.entry, every later one
-// from the previous block's recon rows 31 and 30.
-template <int BITS>
+// prow) after search_chain<BITS, true> (or its narrow form) and a barrier:
+// thread (t, w) = (tid % W, tid / W) takes blocks w, w + S, ... of chain t,
+// S the CTA's threads over W; the first enters from sh.entry, every later
+// one from the previous block's recon rows 31 and 30.
+template <int BITS, int W>
 __device__ __forceinline__ void emit_chain(
-    const SearchShared& sh, const int16_t* __restrict__ pcm,
+    const TileShared<W>& sh, const int16_t* __restrict__ pcm,
     const int32_t* profiles, int16_t* coded, int16_t* recon_out,
     size_t first, int prow, int L, int real) {
-  const int t = threadIdx.x % kLanes;
+  const int t = threadIdx.x % W;
   const size_t lanes = static_cast<size_t>(L);
-  for (int j = threadIdx.x / kLanes; j < real; j += kRanges) {
+  for (int j = threadIdx.x / W; j < real; j += kTileThreads<W> / W) {
     const size_t row =
         first + static_cast<size_t>(j) * kBlockSamples * lanes;
     int32_t p0, p1;

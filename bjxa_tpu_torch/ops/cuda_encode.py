@@ -28,8 +28,9 @@ One CTA walks every block of its 32 lanes, so a stream of few lanes runs on
 one SM.  :func:`encode_search_fixpoint_lanes` gives such a stream the SMs:
 ``csrc/encode_fixpoint.cu`` cuts each lane into K chunks and solves their
 entry states by the exact fixed point inside ONE cooperative launch (a CTA
-a tile of 32 chunk items, the same per-block search), reading and writing
-the stream in place.  Its plain twin,
+a tile of :data:`TILE_ITEMS` chunk items, the same per-block search; each
+round after the first searches only the items whose start moved), reading
+and writing the stream in place.  Its plain twin,
 :func:`encode_search_fixpoint_lanes_plain`, is the host loop
 :func:`bjxa_tpu_torch.ops.encode.encode_search_fixpoint` over
 :func:`encode_search_lanes_plain`; it routes the same way.
@@ -49,9 +50,11 @@ from bjxa_tpu_torch.ops.tables import (
     INT16_MIN,
 )
 
-#: Work items a CTA of the fixed-point kernel searches together
-#: (``kTileItems`` in ``csrc/chunk_fixpoint.cuh``).
-TILE_ITEMS = 32
+#: Chunk items a CTA of the fixed-point kernel searches together
+#: (``csrc/encode_fixpoint.cu``): 8 warps, two for each of an SM's four
+#: schedulers, one running factors 0-2 and one 3-4 of the 16 ranges for the
+#: 8 chains.
+TILE_ITEMS = 8
 
 #: Launches of the encode kernel in this process (plain runs never count).
 LAUNCHES = 0
@@ -206,6 +209,20 @@ def encode_search_lanes(pcm: torch.Tensor, state: torch.Tensor, *, bits: int):
 # --------------------------------------------------------------------------
 
 
+class FixpointOut(tuple):
+    """What :func:`encode_search_fixpoint_lanes` returns: ``(profiles,
+    coded, recon, end, rounds)``, and ``searched``, the chunk items its
+    states-only rounds searched, as the host loop counts them (``K x L`` in
+    its first round, then those whose start changed in the round before;
+    ``L`` when K = 1, 0 when B = 0), a one-element int32 tensor beside
+    ``rounds``, not synced."""
+
+    def __new__(cls, outputs, searched):
+        self = super().__new__(cls, outputs)
+        self.searched = searched
+        return self
+
+
 def fixpoint_chunks(B: int, num_chunks: int) -> tuple[int, int]:
     """``(K, Bc)`` of the fixed point at ``num_chunks`` chunks: the host
     loop's own cut, Bc = ceil(B / K), the stream padded to K*Bc blocks
@@ -223,19 +240,32 @@ def encode_search_fixpoint_lanes_plain(
     """Plain PyTorch version of the fixed-point kernel: the host loop
     :func:`bjxa_tpu_torch.ops.encode.encode_search_fixpoint` over
     :func:`encode_search_lanes_plain`, its rounds as a one-element int32
-    tensor.  On any device; it never launches a kernel.  Same arguments
-    and returns as :func:`encode_search_fixpoint_lanes`."""
+    tensor and its searched items counted from the starts of its rounds.
+    On any device; it never launches a kernel.  Same arguments and returns
+    as :func:`encode_search_fixpoint_lanes`."""
     from bjxa_tpu_torch.ops.encode import encode_search_fixpoint
 
     _check(pcm, state, bits, "encode_search_fixpoint_lanes")
-    fixpoint_chunks(pcm.shape[0], num_chunks)
-    *out, rounds = encode_search_fixpoint(
-        pcm, state, bits=bits, num_chunks=num_chunks,
-        run=lambda lanes, states: encode_search_lanes_plain(lanes, states,
-                                                            bits=bits),
-    )
-    return (*out, torch.tensor([rounds], dtype=torch.int32,
-                               device=pcm.device))
+    K, _ = fixpoint_chunks(pcm.shape[0], num_chunks)
+    starts = []  # each round's chunk starts
+
+    def run(lanes, states):
+        starts.append(states)
+        return encode_search_lanes_plain(lanes, states, bits=bits)
+
+    *out, rounds = encode_search_fixpoint(pcm, state, bits=bits,
+                                          num_chunks=num_chunks, run=run)
+    searched = 0
+    if rounds:
+        searched = K * pcm.shape[2] + sum(
+            int((a != b).any(dim=-1).sum())
+            for a, b in zip(starts, starts[1:]))
+    return FixpointOut((*out, _count(rounds, pcm.device)),
+                       _count(searched, pcm.device))
+
+
+def _count(n: int, device) -> torch.Tensor:
+    return torch.tensor([n], dtype=torch.int32, device=device)
 
 
 def _launch_fixpoint(pcm, state, *, bits, num_chunks):
@@ -248,16 +278,19 @@ def _launch_fixpoint(pcm, state, *, bits, num_chunks):
     B, _, L = pcm.shape
     K, Bc = fixpoint_chunks(B, num_chunks)
     dev = pcm.device
-    scratch = torch.empty(4 + 4 * K * L if K > 1 else 4, dtype=torch.int32,
-                          device=dev)
-    rounds = scratch[2:3]
+    items = K * L
     if L == 0:
-        return profiles, coded, recon, end, rounds.zero_()
+        counts = torch.zeros(2, dtype=torch.int32, device=dev)
+        return FixpointOut((profiles, coded, recon, end, counts[:1]),
+                           counts[1:])
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    tiles = -(-K * L // TILE_ITEMS)
+    tiles = -(-items // TILE_ITEMS)
     fit = occupancy("bjxa_encode_fixpoint_occupancy", bits, index) * sms
     ctas = max(1, min(tiles, fit))
+    scratch = torch.empty(6 + K + 8 * items + ctas if K > 1 else 4,
+                          dtype=torch.int32, device=dev)
+    rounds, searched = scratch[2:3], scratch[3:4]
     err = library().bjxa_encode_fixpoint(
         pcm.data_ptr(), state.data_ptr(), profiles.data_ptr(),
         coded.data_ptr(), recon.data_ptr(), end.data_ptr(),
@@ -268,9 +301,10 @@ def _launch_fixpoint(pcm, state, *, bits, num_chunks):
     FIXPOINT_LAUNCHES += 1
     if K == 1 and B > 0:
         # no states-only round runs; the pass with output is the host
-        # loop's one round
-        rounds = torch.ones(1, dtype=torch.int32, device=dev)
-    return profiles, coded, recon, end, rounds
+        # loop's one round over every lane
+        rounds = _count(1, dev)
+        searched = _count(L, dev)
+    return FixpointOut((profiles, coded, recon, end, rounds), searched)
 
 
 def encode_search_fixpoint_lanes(
@@ -286,11 +320,11 @@ def encode_search_fixpoint_lanes(
         (zero-padded final block).
       state: ``int32[L, 2]`` entry predictor state per lane.
 
-    Returns ``(profiles int32[B, L], coded int16[B, 32, L],
-    recon int16[B, 32, L], end int32[L, 2], rounds int32[1])`` on
-    ``pcm``'s device: the sequential search's outputs, bit for bit, the
+    Returns a :class:`FixpointOut`: ``(profiles int32[B, L], coded int16[B,
+    32, L], recon int16[B, 32, L], end int32[L, 2], rounds int32[1])`` on
+    ``pcm``'s device, the sequential search's outputs, bit for bit, the
     state after block B - 1, and the host loop's round count (0 when
-    B = 0) without a sync.
+    B = 0) without a sync; and the items searched in ``.searched``.
     """
     if pcm.device.type == "cpu":
         return encode_search_fixpoint_lanes_plain(pcm, state, bits=bits,

@@ -220,11 +220,16 @@ class SearchOut(tuple):
     tensor on the device from
     :func:`~bjxa_tpu_torch.ops.cuda_encode.encode_search_fixpoint_lanes`,
     not synced; an int from the host loop of ``run``; 1 on the sequential
-    route)."""
+    route).  On the fixed point's routes also ``items``, its K x L chunk
+    items, and ``searched``, the items its rounds searched (that
+    function's ``searched``; ``items x rounds`` from the host loop, which
+    searches every item every round); both None on the sequential route."""
 
-    def __new__(cls, outputs, rounds):
+    def __new__(cls, outputs, rounds, searched=None, items=None):
         self = super().__new__(cls, outputs)
         self.rounds = rounds
+        self.searched = searched
+        self.items = items
         return self
 
 
@@ -253,14 +258,17 @@ def encode_search_auto(pcm: torch.Tensor, state: torch.Tensor, *, bits: int,
             encode_search_fixpoint_lanes,
         )
 
-        *out, rounds = encode_search_fixpoint_lanes(
+        found = encode_search_fixpoint_lanes(
             pcm.to(torch.int16).contiguous(),
             state.to(torch.int32).contiguous(), bits=bits, num_chunks=K,
         )
+        *out, rounds = found
+        searched = found.searched
     else:
         *out, rounds = encode_search_fixpoint(pcm, state, bits=bits,
                                               num_chunks=K, run=run)
-    return SearchOut(out, rounds)
+        searched = K * L * rounds
+    return SearchOut(out, rounds, searched, K * L)
 
 
 def encode_stream_blocks(
@@ -274,7 +282,8 @@ def encode_stream_blocks(
     or truncation; ``run`` replaces the per-round search as in
     :func:`encode_search_fixpoint`.  Under a ``torch.profiler`` session
     the search is the span ``bjxa.ops.search`` (with the fixed point's
-    ``rounds``) and the packing ``bjxa.ops.deflate``.
+    ``rounds``, and on its routes its ``searched`` and ``items``) and the
+    packing ``bjxa.ops.deflate``.
 
     Returns ``uint8[B, C, block_size]`` on ``pcm``'s device: channel-major
     inside each effective block, the file layout.
@@ -285,7 +294,11 @@ def encode_stream_blocks(
             state = torch.zeros((C, 2), dtype=torch.int32, device=pcm.device)
             found = encode_search_auto(pcm, state, bits=bits, run=run)
             if sp:
-                sp.set(rounds=found.rounds)
+                if found.searched is None:
+                    sp.set(rounds=found.rounds)
+                else:
+                    sp.set(rounds=found.rounds, searched=found.searched,
+                           items=found.items)
         profiles, coded, _recon, _end = found
         del found  # untraced, the scratch that rounds views is freed here
     else:

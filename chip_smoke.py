@@ -3518,14 +3518,17 @@ def main() -> int:
           spill_bytes=enc_ptx["spill_bytes"], cta_threads=ENCODE_CTA_THREADS,
           ctas_per_sm=min(65536 // (regs * ENCODE_CTA_THREADS),
                           2048 // ENCODE_CTA_THREADS))
-    # the search's fixed point: the same body, its CTAs an SM as the
-    # cooperative launch's occupancy query gives them
+    # the search's fixed point: the same search in tiles of TILE_ITEMS
+    # chains (a CTA of two threads for each of a chain's 16 ranges), its
+    # CTAs an SM as the cooperative launch's occupancy query gives them
+    from bjxa_tpu_torch.ops.cuda_encode import TILE_ITEMS
+
     fix_ptx = report["encode_fixpoint"]
     phase(1, "encode_fixpoint_ptxas", registers=fix_ptx["registers"],
           spill_bytes=fix_ptx["spill_bytes"],
           stack_bytes=max(r["stack_bytes"]
                           for r in fix_ptx["instances"].values()),
-          cta_threads=ENCODE_CTA_THREADS,
+          cta_threads=2 * 16 * TILE_ITEMS,
           ctas_per_sm={bits: _build.library().bjxa_encode_fixpoint_occupancy(
               bits, torch.cuda.current_device()) for bits in (4, 6, 8)})
     if fix_ptx["spill_bytes"] or max(fix_ptx["registers"]) > 64:

@@ -118,11 +118,12 @@ def test_records_share_the_profilers_clock(run):
 
 
 def test_span_attributes(run):
-    """The search's span carries the rounds, which a metric reads; no
-    other span carries an attribute."""
+    """The search's span carries the fixed point's rounds, searched items
+    and items, which metrics read; no other span carries an attribute."""
     for recs in _requests(run["records"]).values():
         attrs = {r["name"]: r["attrs"] for r in recs}
-        assert set(attrs["bjxa.ops.search"]) == {"rounds"}
+        assert set(attrs["bjxa.ops.search"]) == {"rounds", "searched",
+                                                 "items"}
         for name in (ROOT, *STAGES):
             if name != "bjxa.ops.search":
                 assert attrs[name] == {}, name
@@ -155,6 +156,32 @@ def test_rounds_equal_the_host_loop(run):
            if r["name"] == "bjxa.ops.search"]
     assert rounds > 1 and got == [rounds] * CALLS
     assert all(type(g) is int for g in got)
+
+
+def test_searched_counts_the_starts_that_moved(run):
+    """The search span's ``searched``: every chunk item in the first round,
+    then those whose start the round before moved; ``items`` is K x C."""
+    body = run["wav"][RIFF_HEADER_SIZE:]
+    pcm = np.zeros((BLOCKS * 32, CHANNELS), np.int16)
+    pcm[:SAMPLES] = np.frombuffer(body, "<i2").reshape(-1, CHANNELS)
+    K = encode.pick_encode_chunks(BLOCKS, CHANNELS)
+    starts = []
+
+    def run_round(x, states):
+        starts.append(states.clone())
+        return cuda_encode.encode_search_lanes_plain(x, states, bits=BITS)
+
+    *_, rounds = encode.encode_search_fixpoint(
+        torch.from_numpy(pcm.reshape(BLOCKS, 32, CHANNELS)),
+        torch.zeros((CHANNELS, 2), dtype=torch.int32), bits=BITS,
+        num_chunks=K, run=run_round)
+    moved = sum(int((b != a).any(dim=1).sum())
+                for a, b in zip(starts, starts[1:]))
+    got = [r["attrs"] for r in run["records"]
+           if r["name"] == "bjxa.ops.search"]
+    assert got == [{"rounds": rounds, "searched": K * CHANNELS + moved,
+                    "items": K * CHANNELS}] * CALLS
+    assert K * CHANNELS + moved < K * CHANNELS * rounds
 
 
 def test_recording_agrees_with_the_profilers_own_state():
