@@ -26,6 +26,7 @@ from bjxa_tpu_torch.format import (
     dump_pcm,
     load_pcm,
 )
+from bjxa_tpu_torch.format.pcm import pcm_frames
 from bjxa_tpu_torch.ops.decode import (
     decode_bytes,
     iter_decode_segments,
@@ -33,9 +34,13 @@ from bjxa_tpu_torch.ops.decode import (
 )
 from bjxa_tpu_torch.ops.encode import (
     encode_stream_blocks,
+    host_buffer,
     iter_encode_segments,
+    read_back,
+    staged_to_device,
 )
-from bjxa_tpu_torch.utils.profiler import span
+from bjxa_tpu_torch.utils.hostcopy import copy_into, joined
+from bjxa_tpu_torch.utils.profiler import minor_faults, span
 
 
 def decode_xa(
@@ -85,9 +90,12 @@ def encode_pcm(
     mesh's devices instead (the boundary-state ring of
     :func:`bjxa_tpu_torch.parallel.sharded.encode_file_sharded`),
     bit-identical to the sequential greedy search.
+
+    The PCM is copied once, into the calling thread's reused staging
+    buffer (:func:`bjxa_tpu_torch.ops.encode.host_buffer`), as in
+    :func:`wav_to_xa`.
     """
-    if bits not in (4, 6, 8):
-        raise BjxaInvalidState(f"encode_pcm: invalid bit depth {bits}")
+    _check_bits(bits)
     pcm = np.asarray(pcm, dtype=np.int16)
     if pcm.ndim == 1:
         pcm = pcm[:, None]
@@ -97,36 +105,68 @@ def encode_pcm(
     if channels not in (1, 2):
         raise BjxaInvalidState(f"encode_pcm: bad channel count {channels}")
 
-    nblocks = -(-samples // BLOCK_SAMPLES)
     with span("bjxa.api.pad"):
-        padded = np.zeros((nblocks * BLOCK_SAMPLES, channels), np.int16)
-        padded[:samples] = pcm
-        lanes = padded.reshape(nblocks, BLOCK_SAMPLES, channels)
+        stage, staged, _grown = _staging(device, samples, channels)
+        copy_into(staged[:samples], pcm)
+        staged[samples:] = 0
+    return _encode_staged(stage, staged, samples, samples_rate, bits,
+                          search=search, device=device, mesh=mesh,
+                          sp_axis=sp_axis, sp_min_blocks=sp_min_blocks)[0]
+
+
+def _check_bits(bits: int) -> None:
+    if bits not in (4, 6, 8):
+        raise BjxaInvalidState(f"encode_pcm: invalid bit depth {bits}")
+
+
+def _staging(device, samples: int, channels: int):
+    """This thread's staging buffer for ``device``
+    (:func:`~bjxa_tpu_torch.ops.encode.host_buffer` ``"staging"``), long
+    enough for ``samples`` frames padded to whole blocks: the buffer, its
+    ``int16[nblocks * 32, channels]`` view, and the bytes it grew by."""
+    n = -(-samples // BLOCK_SAMPLES) * BLOCK_SAMPLES * channels
+    stage = host_buffer("staging", device)
+    grown = stage.take(2 * n)
+    staged = stage.data[: 2 * n].numpy().view(np.int16).reshape(-1, channels)
+    return stage, staged, grown
+
+
+def _encode_staged(stage, staged: np.ndarray, samples: int,
+                   samples_rate: int, bits: int, *, search: bool, device,
+                   mesh=None, sp_axis: str = "sp",
+                   sp_min_blocks: int = 2048) -> tuple[bytes, int]:
+    """The XA image of the zero-padded PCM ``staged`` (``samples`` real
+    frames), a view of ``stage``'s data, and the bytes the call's readback
+    buffer grew by."""
+    nblocks, channels = staged.shape[0] // BLOCK_SAMPLES, staged.shape[1]
+    grown = 0
     if search and use_sp_mesh(mesh, sp_axis) and nblocks >= sp_min_blocks:
         from bjxa_tpu_torch.parallel.sharded import encode_file_sharded
 
         host, _end, _rounds = encode_file_sharded(
-            lanes, np.zeros((channels, 2), np.int32), bits=bits, mesh=mesh,
+            staged.reshape(nblocks, BLOCK_SAMPLES, channels),
+            np.zeros((channels, 2), np.int32), bits=bits, mesh=mesh,
             axis=sp_axis,
         )
     else:
         with span("bjxa.ops.h2d"):
-            lanes = torch.from_numpy(lanes).to(device)
+            lanes = staged_to_device(
+                stage, (nblocks, BLOCK_SAMPLES, channels), device)
         blocks = encode_stream_blocks(lanes, bits=bits, search=search)
         with span("bjxa.ops.readback"):
-            host = blocks.cpu().numpy()
+            host, grown = read_back(blocks)
 
     with span("bjxa.api.assemble"):
-        payload = host.tobytes()
         fmt = XAFormat(
-            data_len=len(payload),
+            data_len=host.nbytes,
             samples=samples,
             samples_rate=samples_rate,
             bits=bits,
             channels=channels,
             initial_state=((0, 0), (0, 0)),
         ).validate()
-        return dump_xa_header(fmt) + payload
+        # one copy of the payload, into the returned image
+        return joined(dump_xa_header(fmt), host), grown
 
 
 def decode_xa_stream(
@@ -218,16 +258,38 @@ def wav_to_xa(
     """Convert a whole WAVE file image to an XA file image, encoding on
     ``device``.
 
+    The PCM body is copied once, into the calling thread's staging buffer
+    (page-locked for a CUDA device), and the packed blocks come back into
+    a reused page-locked buffer: the buffers grow to the largest call so
+    far and are reused, so once warm the only fresh host memory of a call
+    is the image it returns (:func:`bjxa_tpu_torch.ops.encode.host_buffer`).
+
     Under a ``torch.profiler`` session each call is the span
     ``bjxa.api.wav_to_xa`` around the spans of its stages
-    (:func:`bjxa_tpu_torch.utils.profiler.span`)."""
-    with span("bjxa.api.wav_to_xa"):
+    (:func:`bjxa_tpu_torch.utils.profiler.span`); the root carries
+    ``minflt``, the minor page faults the call took
+    (:func:`~bjxa_tpu_torch.utils.profiler.minor_faults`), and
+    ``grown_bytes``, the bytes by which it grew its reused buffers (0 once
+    warm)."""
+    with span("bjxa.api.wav_to_xa") as root:
+        faults = minor_faults() if root else 0
         with span("bjxa.format.parse_riff"):
             rf = parse_riff_header(data)
             body = memoryview(data)[RIFF_HEADER_SIZE:]
             if len(body) < rf.data_len_pcm:
                 raise BjxaIOError("WAVE stream truncated")
         with span("bjxa.format.load_pcm"):
-            pcm = load_pcm(body[: rf.data_len_pcm], rf.channels)
-        return encode_pcm(pcm, rf.samples_rate, bits, search=search,
-                          device=device)
+            body = body[: rf.data_len_pcm]
+            samples = pcm_frames(body, rf.channels)
+            _check_bits(bits)
+            stage, staged, grown = _staging(device, samples, rf.channels)
+            load_pcm(body, rf.channels, out=staged[:samples])
+        with span("bjxa.api.pad"):
+            staged[samples:] = 0
+        image, grown_back = _encode_staged(stage, staged, samples,
+                                           rf.samples_rate, bits,
+                                           search=search, device=device)
+        if root:
+            root.set(minflt=minor_faults() - faults,
+                     grown_bytes=grown + grown_back)
+        return image

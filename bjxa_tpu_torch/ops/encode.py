@@ -25,12 +25,15 @@ through the same encoders in fixed-size block segments (sharded over a
 ``mesh``'s sequence-parallel axis when it has several devices, by
 :func:`bjxa_tpu_torch.parallel.sharded.encode_file_sharded`);
 :func:`encode_batch_blocks` is the corpus engine's batch of many streams.  Every function works on the device of the tensors it is
-given.
+given.  :func:`host_buffer` is a thread's reused host memory of the
+whole-file encode, :func:`staged_to_device` and :func:`read_back` its
+page-locked copies to and from a card: no fresh host memory once warm.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from functools import partial
 
 import numpy as np
@@ -38,7 +41,7 @@ import torch
 
 from bjxa_tpu_torch.errors import BjxaInvalidState
 from bjxa_tpu_torch.ops.deflate import deflate_blocks
-from bjxa_tpu_torch.ops.tables import NUM_FACTORS, NUM_RANGES
+from bjxa_tpu_torch.ops.tables import BLOCK_SAMPLES, NUM_FACTORS, NUM_RANGES
 from bjxa_tpu_torch.utils.profiler import span
 
 NUM_CANDIDATES = NUM_FACTORS * NUM_RANGES  # 80
@@ -337,6 +340,92 @@ def encode_batch_blocks(pcm: torch.Tensor, *, bits: int,
     else:
         profiles, coded = encode_truncate(pcm)
     return deflate_blocks(profiles, coded.transpose(1, 2), bits).reshape(-1)
+
+
+class HostBuffer:
+    """A ``uint8`` host buffer that one thread reuses for one role on one
+    device: page-locked where the device is a CUDA card, so copies to and
+    from it are DMA and may be ``non_blocking``.  It grows to the largest
+    request so far and never shrinks, so once warm a call maps and faults
+    in no fresh host memory.  :meth:`take` first waits for the copies of
+    its last use (:meth:`used`)."""
+
+    __slots__ = ("pinned", "data", "_done")
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.data: torch.Tensor | None = None
+        self._done = None
+
+    def take(self, nbytes: int) -> int:
+        """Make :attr:`data` at least ``nbytes`` long, once the copies of
+        its last use are done; returns the bytes it grew by (0 when it was
+        long enough)."""
+        if self._done is not None:
+            self._done.synchronize()
+        have = 0 if self.data is None else self.data.numel()
+        if nbytes <= have:
+            return 0
+        self.data = None  # the old buffer goes back before the new one
+        self.data = torch.empty(nbytes, dtype=torch.uint8,
+                                pin_memory=self.pinned)
+        return nbytes - have
+
+    def used(self, device: torch.device) -> None:
+        """Note that copies enqueued on ``device``'s current stream read or
+        write the buffer: the next :meth:`take` waits for them."""
+        if self._done is None:
+            self._done = torch.cuda.Event()
+        self._done.record(torch.cuda.current_stream(device))
+
+
+_host_buffers = threading.local()
+
+
+def host_buffer(role: str, device: torch.device | str) -> HostBuffer:
+    """The calling thread's :class:`HostBuffer` for ``role`` on
+    ``device`` (page-locked for a CUDA device), made empty on first use."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    held = _host_buffers.__dict__.setdefault("by_key", {})
+    buf = held.get((role, device))
+    if buf is None:
+        buf = held[(role, device)] = HostBuffer(device.type == "cuda")
+    return buf
+
+
+def staged_to_device(stage: HostBuffer, shape: tuple, device):
+    """The ``int16`` PCM ``shape`` (``[B, 32, C]``) at the start of
+    ``stage.data`` as a tensor on ``device``: on a CUDA device an H2D from
+    the page-locked buffer on the current stream, without blocking (the
+    buffer's next :meth:`~HostBuffer.take` waits for it); elsewhere the
+    staged PCM itself."""
+    device = torch.device(device)
+    n = 2 * shape[0] * shape[1] * shape[2]
+    host = stage.data[:n].view(torch.int16).view(shape)
+    if device.type != "cuda":
+        return host.to(device)
+    lanes = torch.empty(shape, dtype=torch.int16, device=device)
+    lanes.copy_(host, non_blocking=True)
+    stage.used(device)
+    return lanes
+
+
+def read_back(blocks: torch.Tensor):
+    """``blocks`` as a host array, and the bytes the copy's buffer grew
+    by: from a CUDA device copied into the calling thread's page-locked
+    ``"readback"`` :func:`host_buffer`, then the stream waited on (the
+    array is a view of that buffer, valid until the thread's next
+    readback); elsewhere ``blocks`` itself."""
+    if blocks.device.type != "cuda":
+        return blocks.cpu().numpy(), 0
+    back = host_buffer("readback", blocks.device)
+    grown = back.take(blocks.numel())
+    out = back.data[: blocks.numel()].view(blocks.shape)
+    out.copy_(blocks, non_blocking=True)
+    torch.cuda.current_stream(blocks.device).synchronize()
+    return out.numpy(), grown
 
 
 def _encode_segment(lanes: torch.Tensor, state: torch.Tensor, nblocks: int,

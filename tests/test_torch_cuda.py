@@ -468,6 +468,83 @@ def test_wav_to_xa_card_matches_cpu(dev, bits, channels):
         )
 
 
+#: (channels, bits, frames) of a run of calls on one thread: growing,
+#: shrinking, both routes of the search, ragged last blocks.
+STAGED_RUN = [(1, 6, 70 * 32), (2, 8, 200 * 32 - 7), (1, 4, 20 * 32 + 1),
+              (2, 6, 130 * 32 - 16), (2, 4, 10 * 32 + 5), (1, 8, 150 * 32)]
+
+
+def _on_thread(work):
+    """``work()`` on a thread of its own, whose reused host buffers
+    (``ops/encode.host_buffer``) start empty."""
+    import threading
+
+    out = {}
+
+    def body():
+        try:
+            out["value"] = work()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            out["error"] = e
+
+    t = threading.Thread(target=body)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def test_wav_to_xa_stages_through_page_locked_buffers(dev):
+    """On a card the staging and readback buffers are page-locked, and
+    over a run of shapes on one thread every image is the CPU's."""
+    from bjxa_tpu_torch.ops import encode
+
+    cases = [(_wav(c, f, seed=i), b) for i, (c, b, f) in
+             enumerate(STAGED_RUN)]
+
+    def work():
+        out = [wav_to_xa(wav, bits, device=dev) for wav, bits in cases]
+        return (out, encode.host_buffer("staging", dev).data.is_pinned(),
+                encode.host_buffer("readback", dev).data.is_pinned())
+
+    out, staged_pinned, back_pinned = _on_thread(work)
+    assert staged_pinned and back_pinned
+    for (wav, bits), image in zip(cases, out):
+        assert image == wav_to_xa(wav, bits, device="cpu")
+
+
+def test_wav_to_xa_second_call_grows_nothing(dev):
+    """Traced on a card: a fresh thread's first call grows the staging
+    buffer by the padded PCM and the readback buffer by the payload; the
+    same shape again grows nothing and gives the same bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bjxa_tpu_torch.utils import profiler as prof
+
+    channels, bits, frames = STAGED_RUN[3]
+    wav = _wav(channels, frames, seed=3)
+    nblocks = -(-frames // 32)
+
+    def work():
+        roots, images = [], []
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(2):
+                prof.clear()
+                images.append(wav_to_xa(wav, bits, device=dev))
+                roots += [r for r in prof.records()
+                          if r["name"] == "bjxa.api.wav_to_xa"]
+        prof.clear()
+        return roots, images
+
+    roots, images = _on_thread(work)
+    assert [r["attrs"]["grown_bytes"] for r in roots] == [
+        2 * channels * nblocks * 32 + nblocks * channels * (4 * bits + 1), 0]
+    assert all(r["attrs"]["minflt"] >= 0 for r in roots)
+    assert images[0] == images[1] == wav_to_xa(wav, bits, device="cpu")
+
+
 @pytest.mark.parametrize("bits", [4, 6, 8])
 @pytest.mark.parametrize("B,L", [(40, 1000), (3, 129), (300, 3)])
 def test_words_kernel_matches_plain(dev, bits, B, L):

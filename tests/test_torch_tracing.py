@@ -119,14 +119,86 @@ def test_records_share_the_profilers_clock(run):
 
 def test_span_attributes(run):
     """The search's span carries the fixed point's rounds, searched items
-    and items, which metrics read; no other span carries an attribute."""
+    and items, and the root the call's minor faults and buffer growth,
+    which metrics read; no other span carries an attribute."""
     for recs in _requests(run["records"]).values():
         attrs = {r["name"]: r["attrs"] for r in recs}
         assert set(attrs["bjxa.ops.search"]) == {"rounds", "searched",
                                                  "items"}
-        for name in (ROOT, *STAGES):
+        assert set(attrs[ROOT]) == {"minflt", "grown_bytes"}
+        assert type(attrs[ROOT]["minflt"]) is int
+        assert attrs[ROOT]["minflt"] >= 0
+        # the untraced call before grew this thread's buffers to the shape
+        assert attrs[ROOT]["grown_bytes"] == 0
+        for name in STAGES:
             if name != "bjxa.ops.search":
                 assert attrs[name] == {}, name
+
+
+def _traced_calls(wavs) -> list:
+    """The root records of ``wav_to_xa`` on each of ``wavs`` in turn, on a
+    thread of its own (its buffers start empty), under a CPU profiler."""
+    roots = []
+
+    def work():
+        with profile(activities=[ProfilerActivity.CPU]):
+            for wav in wavs:
+                prof.clear()
+                api.wav_to_xa(wav, BITS, device="cpu")
+                roots.extend(r for r in prof.records() if r["name"] == ROOT)
+        prof.clear()
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    return roots
+
+
+def test_grown_bytes_counts_the_staging_buffers_growth():
+    """A fresh thread's first call grows its staging buffer to the padded
+    PCM (no readback buffer off the card); the same shape again, and a
+    shorter one, grow nothing; a longer one grows it by the difference."""
+    wav = _wav()
+    body = wav[RIFF_HEADER_SIZE:]
+    short = dump_riff_header(64 * 32 * 4, 44100, CHANNELS) + body[:64 * 128]
+    longer = (dump_riff_header(len(body) * 2, 44100, CHANNELS)
+              + body + body)
+    got = [r["attrs"]["grown_bytes"]
+           for r in _traced_calls([wav, wav, short, longer, wav])]
+    padded = BLOCKS * 32 * CHANNELS * 2
+    grown_to = -(-(2 * SAMPLES) // 32) * 32 * CHANNELS * 2
+    assert got == [padded, 0, 0, grown_to - padded, 0]
+
+
+def test_minflt_is_the_calls_difference_of_the_thread_count(monkeypatch):
+    """The root's ``minflt`` is :func:`minor_faults` at its end less at its
+    start; untraced, the count is never read."""
+    reads = iter([1000, 1042])
+    monkeypatch.setattr(api, "minor_faults", lambda: next(reads))
+    (root,) = _traced_calls([_wav()])
+    assert root["attrs"]["minflt"] == 42
+
+    def unread():
+        raise AssertionError("minor_faults read while nothing records")
+
+    monkeypatch.setattr(api, "minor_faults", unread)
+    assert api.wav_to_xa(_wav(), BITS, device="cpu") == api.encode_pcm(
+        np.frombuffer(_wav()[RIFF_HEADER_SIZE:], "<i2").reshape(
+            -1, CHANNELS), 44100, BITS, device="cpu")
+
+
+def test_minor_faults_reads_the_threads_count():
+    """The thread's own count, never falling; touching fresh pages raises
+    it where the kernel counts faults."""
+    import resource
+
+    before = prof.minor_faults()
+    fresh = np.ones(16 << 20, np.uint8)
+    after = prof.minor_faults()
+    assert type(before) is int and 0 <= before <= after
+    assert after <= resource.getrusage(resource.RUSAGE_THREAD).ru_minflt
+    assert fresh.sum() == 16 << 20
 
 
 def test_records_lie_inside_their_ranges(run):
